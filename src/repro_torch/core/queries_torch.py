@@ -1,0 +1,471 @@
+"""Device query engine of the PyTorch port: fused window and k-NN batches.
+
+The port of the JAX package's fused engine (``repro/core/queries_jax.py``:
+``_window_batch_fused`` and ``_knn_batch_fused`` with the functions under
+them).  A ``NodeTable`` is exported once into fixed-shape tensors on the
+card (:class:`DeviceTable`); each query batch then runs on the device with
+a few scalar syncs, and four hand-written CUDA kernels carry the geometry
+(``kernels/ops.py``):
+
+  * **Window batch.**  A level-synchronous frontier descent tests each
+    level block's boxes against the whole batch (``box_hits_tiled``, one
+    launch per level block; against the outward-rounded bf16 bounds of a
+    compressed export), and survival propagates down through each row's
+    parent position.  The (Q, L) leaf hit mask is compacted on the device
+    into (window, leaf) pairs by a cumulative sum probed with
+    ``searchsorted``; pairs stream in power-of-two buckets of at most
+    ``PAIR_CHUNK`` through ``pair_window_ids`` (one launch per chunk),
+    which re-checks each leaf box in exact f32 and tests containment.
+    The qualifying ids are compacted on the device too.  Host syncs: one
+    for the pair count, one per chunk for its id total, and the final
+    transfer of the packed ids.
+  * **k-NN batch.**  Each query ranks the leaves by box mindist
+    (``leaf_mindist_tiled``; compressed bounds where exported, which only
+    lowers a mindist), scans its C closest through ``pair_dist2``, merges
+    top-k in two levels (within each leaf, then across the C winners) and
+    certifies the result against the mindist of the closest unscanned
+    leaf.  Queries whose certificate fails rerun with a doubled budget,
+    gathered and scattered back on the device; the host syncs one scalar
+    (the failure count) per round.
+
+The device of the tensors picks the arithmetic: on the card every kernel
+launches (or raises), on the CPU the same function runs as its plain
+version.  Entry points export to ``cuda`` unless the caller passes
+``device="cpu"``; without a card they raise.
+
+Parity contract (as the JAX engine's): windows return exactly the NumPy
+engine's id sets for float32-representable inputs; k-NN returns the exact
+k nearest under float32 distance arithmetic, with ids that may differ only
+among exact ties.  Result order within a window set is unspecified.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from .nodetable import NodeTable
+
+BIG = float(np.finfo(np.float32).max)
+
+# one scan covers at most this many (window, leaf) pairs; a bigger
+# candidate set streams in chunks so memory stays bounded
+PAIR_CHUNK = 16384
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises when CUDA is
+    asked for and absent (there is no silent move to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the engine runs on the card; pass device='cpu' "
+            "to run the plain versions on the host"
+        )
+    return dev
+
+
+@dataclasses.dataclass
+class UploadStats:
+    """Host -> device upload counters of one export (per instance)."""
+
+    full_exports: int = 0          # DeviceTable.from_table calls
+    uploaded_leaf_blocks: int = 0  # leaf blocks shipped host -> device
+    uploaded_points: int = 0       # live points inside those blocks
+
+    def record_export(self, n_blocks: int, n_points: int) -> None:
+        self.full_exports += 1
+        self.uploaded_leaf_blocks += int(n_blocks)
+        self.uploaded_points += int(n_points)
+
+
+def _bf16(u16: np.ndarray, device) -> torch.Tensor:
+    """Upload outward-rounded bf16 bit patterns (``np.uint16``) as a
+    ``torch.bfloat16`` tensor: a reinterpretation, no rounding."""
+    t = torch.from_numpy(np.ascontiguousarray(u16).view(np.int16))
+    return t.view(torch.bfloat16).to(device)
+
+
+@dataclasses.dataclass
+class DeviceTable:
+    """Fixed-shape device export of a ``NodeTable``.
+
+    ``levels`` holds one block per tree depth: ``(lo, hi, parent)`` with
+    the rows' f32 bounds and each row's position within the previous
+    level's block (see ``NodeTable.device_layout``).  ``terminals`` holds,
+    per level, the positions of the leaf and cold rows and their frontier
+    slots: every such row owns a distinct slot, so the frontier writes its
+    hits with a plain assignment (branch rows, which share the JAX engine's
+    sentinel slot, are never written).  A partial export
+    carries the unrefined rows' boxes in ``cold_lo``/``cold_hi``; a
+    compressed one carries outward-rounded bf16 copies of every bound
+    column (``leaf_lo_c``/``leaf_hi_c``, ``levels_c``).
+    """
+
+    leaf_pts: torch.Tensor     # (L, S, d) f32 leaf-blocked points, pad = f32 max
+    leaf_ids: torch.Tensor     # (L, S) int32 dataset rows, pad = -1
+    leaf_counts: torch.Tensor  # (L,) int32 live slots per leaf block
+    leaf_lo: torch.Tensor      # (L, d) f32
+    leaf_hi: torch.Tensor      # (L, d) f32
+    levels: tuple              # per depth: (lo, hi, parent int64)
+    terminals: tuple           # per depth: (positions int64, slots int64)
+    cold_lo: torch.Tensor      # (U, d) f32 unrefined-row boxes
+    cold_hi: torch.Tensor
+    leaf_lo_c: torch.Tensor = None  # (L, d) bf16 (compressed export)
+    leaf_hi_c: torch.Tensor = None
+    levels_c: tuple = None          # per depth: (lo_c, hi_c) bf16
+    n_points: int = 0
+    upload_stats: UploadStats = None
+
+    @property
+    def compressed(self) -> bool:
+        return self.leaf_lo_c is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.leaf_pts.device
+
+    @property
+    def n_leaves(self) -> int:
+        return self.leaf_pts.shape[0]
+
+    @property
+    def n_cold(self) -> int:
+        return self.cold_lo.shape[0]
+
+    @property
+    def leaf_size(self) -> int:
+        return self.leaf_pts.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.leaf_pts.shape[2]
+
+    def live_points(self) -> int:
+        """Live point count (the sum of the leaf fills)."""
+        return self.n_points
+
+    @classmethod
+    def from_table(cls, table: NodeTable, points: np.ndarray, *,
+                   partial: bool = False, compressed: bool = False,
+                   stats: UploadStats | None = None,
+                   device=None) -> "DeviceTable":
+        """Export ``table`` over ``points`` (a full upload) to ``device``
+        (``cuda`` unless given).
+
+        ``n_points`` is the table's live point count (the sum of its leaf
+        fills); a partial export counts only the refined points.
+        ``compressed=True`` also ships outward-rounded bf16 bound columns,
+        which the traversal and the k-NN ranking read; the exact f32
+        columns stay for the window re-check, so results are unchanged.
+        """
+        dev = resolve_device(device)
+        lay = table.device_layout(np.asarray(points), partial=partial,
+                                  compressed=compressed)
+        n_leaves = lay["leaf_pts"].shape[0]
+        n_slots = n_leaves + len(lay["cold_rows"])
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        levels, terminals = [], []
+        for lv in lay["levels"]:
+            slot = lv["slot"].astype(np.int64)
+            term = np.flatnonzero(slot < n_slots)
+            levels.append((up(lv["lo"]), up(lv["hi"]),
+                           up(lv["parent"].astype(np.int64))))
+            terminals.append((up(term), up(slot[term])))
+        n_points = int(lay["leaf_counts"].sum())
+        sink = stats if stats is not None else UploadStats()
+        sink.record_export(n_leaves, n_points)
+        return cls(
+            leaf_pts=up(lay["leaf_pts"]),
+            leaf_ids=up(lay["leaf_ids"]),
+            leaf_counts=up(lay["leaf_counts"]),
+            leaf_lo=up(lay["leaf_lo"]),
+            leaf_hi=up(lay["leaf_hi"]),
+            levels=tuple(levels),
+            terminals=tuple(terminals),
+            cold_lo=up(lay["cold_lo"]),
+            cold_hi=up(lay["cold_hi"]),
+            leaf_lo_c=_bf16(lay["leaf_lo_c"], dev) if compressed else None,
+            leaf_hi_c=_bf16(lay["leaf_hi_c"], dev) if compressed else None,
+            levels_c=(
+                tuple((_bf16(lv["lo_c"], dev), _bf16(lv["hi_c"], dev))
+                      for lv in lay["levels"])
+                if compressed else None
+            ),
+            n_points=n_points,
+            upload_stats=sink,
+        )
+
+    @classmethod
+    def from_index(cls, index, *, compressed: bool = False,
+                   stats: UploadStats | None = None,
+                   device=None) -> "DeviceTable":
+        """From a built ``core.fmbi.Index`` (table + dataset)."""
+        return cls.from_table(index.table, index.points, compressed=compressed,
+                              stats=stats, device=device)
+
+
+# --------------------------------------------------------------------------
+# window batch
+# --------------------------------------------------------------------------
+def _frontier_count(dev: DeviceTable, qlo: torch.Tensor, qhi: torch.Tensor):
+    """(Q, L + U) bool hit mask of leaf and cold slots, plus the number of
+    (window, leaf) pairs as a device scalar.
+
+    One ``box_hits_tiled`` launch per level block, against the bf16
+    bounds of a compressed export (a superset of the f32 hits, which the
+    pair scan re-checks) or the f32 bounds.  A row survives when its box
+    hits and its parent survived."""
+    n_slots = dev.n_leaves + dev.n_cold
+    slot_hit = torch.zeros((n_slots, qlo.shape[0]), dtype=torch.bool,
+                           device=qlo.device)
+    prev = None
+    for i, (lo, hi, parent) in enumerate(dev.levels):
+        if dev.levels_c is not None:
+            lo, hi = dev.levels_c[i]
+        hit = kops.box_hits_tiled(lo, hi, qlo, qhi) > 0   # (n_level, Q)
+        if prev is not None:
+            hit &= prev[parent]
+        pos, slot = dev.terminals[i]
+        slot_hit[slot] = hit[pos]   # distinct slots: a plain assignment
+        prev = hit
+    hits = slot_hit.t().contiguous()
+    return hits, hits[:, : dev.n_leaves].sum()
+
+
+def _compact_idx(csum: torch.Tensor, first: int, count: int):
+    """Positions of the set bits ``first .. first + count - 1`` (1-based
+    ranks) of a flat 0/1 mask, given the mask's inclusive cumulative sum;
+    ranks past the total come back clamped to the last position."""
+    ranks = torch.arange(first, first + count, dtype=csum.dtype,
+                         device=csum.device)
+    pos = torch.searchsorted(csum, ranks)
+    return pos.clamp_(max=csum.shape[0] - 1), ranks
+
+
+def _cumsum(mask: torch.Tensor) -> torch.Tensor:
+    dtype = torch.int32 if mask.numel() < 2**31 else torch.int64
+    return torch.cumsum(mask, 0, dtype=dtype)
+
+
+def _fused_pack_scan(dev: DeviceTable, qlo, qhi, csum, a: int, pc: int,
+                     n_pairs: int, per_query: torch.Tensor):
+    """Pack pairs ``a .. a + pc`` of the hit mask (row-major, so they stay
+    grouped by window), scan them with ``pair_window_ids`` and add each
+    pair's count to its window.  Returns the (pc, S) ids-or-minus-one
+    matrix and the chunk's id total (a device scalar)."""
+    pos, ranks = _compact_idx(csum, a + 1, pc)
+    pair_valid = (ranks <= n_pairs).to(torch.int32)
+    q_idx = pos // dev.n_leaves
+    leaf_idx = (pos % dev.n_leaves).to(torch.int32)
+    ids_or, pair_counts = kops.pair_window_ids(
+        qlo, qhi, dev.leaf_lo, dev.leaf_hi, dev.leaf_pts, dev.leaf_ids,
+        dev.leaf_counts, q_idx.to(torch.int32), leaf_idx, pair_valid,
+    )
+    per_query.index_add_(0, q_idx, pair_counts.to(per_query.dtype))
+    return ids_or, pair_counts.sum()
+
+
+def _fused_id_pack(ids_or: torch.Tensor, total: int) -> torch.Tensor:
+    """The ``total`` non-negative entries of the (P, S) id matrix, in pair
+    order, compacted on the device through a power-of-two bucket."""
+    flat = ids_or.reshape(-1)
+    r = _pow2(total)
+    pos, ranks = _compact_idx(_cumsum(flat >= 0), 1, r)
+    packed = torch.where(ranks <= total, flat[pos], -1)
+    return packed[:total]
+
+
+def window_query_batch_torch(dev: DeviceTable, los, his, *,
+                             return_cold: bool = False):
+    """Batched window query: per-window arrays of dataset row ids.
+
+    Ids equal (as sets) those of the NumPy engine and the JAX engine for
+    float32-representable inputs.  On a partial export the ids cover only
+    the refined leaves; ``return_cold=True`` also returns the (Q, U) mask
+    of the unrefined rows each window reached (those windows must be
+    answered on the host)."""
+    los = np.atleast_2d(np.asarray(los, dtype=np.float32))
+    his = np.atleast_2d(np.asarray(his, dtype=np.float32))
+    if los.shape != his.shape or los.ndim != 2 or los.shape[1] != dev.dim:
+        raise ValueError(f"windows must be (Q, {dev.dim}) lo/hi pairs, got "
+                         f"{los.shape} and {his.shape}")
+    q0 = los.shape[0]
+    qlo = torch.from_numpy(los).to(dev.device)
+    qhi = torch.from_numpy(his).to(dev.device)
+    hits, n_pairs = _frontier_count(dev, qlo, qhi)
+    p0 = int(n_pairs)                                     # host sync
+    cold = hits[:, dev.n_leaves:].cpu().numpy() if return_cold else None
+    if p0 == 0:
+        empty = [np.zeros(0, dtype=np.int64) for _ in range(q0)]
+        return (empty, cold) if return_cold else empty
+    csum = _cumsum(hits[:, : dev.n_leaves].reshape(-1))
+    per_query = torch.zeros(q0, dtype=torch.int64, device=dev.device)
+    parts = []
+    for a in range(0, p0, PAIR_CHUNK):
+        pc = _pow2(min(p0 - a, PAIR_CHUNK))
+        ids_or, total = _fused_pack_scan(dev, qlo, qhi, csum, a, pc, p0,
+                                         per_query)
+        t = int(total)                                    # host sync
+        if t:
+            parts.append(_fused_id_pack(ids_or, t))
+    all_ids = (torch.cat(parts).cpu().numpy().astype(np.int64)
+               if parts else np.zeros(0, dtype=np.int64))
+    res = np.split(all_ids, np.cumsum(per_query.cpu().numpy())[:-1])
+    return (res, cold) if return_cold else res
+
+
+# --------------------------------------------------------------------------
+# k-NN batch
+# --------------------------------------------------------------------------
+def _knn_core(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
+    """One k-NN round over each query's ``c`` closest leaves.
+
+    Returns ``(ids, d2k, exact)`` padded to the budget-independent width
+    ``min(k, L*S)``: ``exact`` holds where the k-th distance does not
+    exceed the mindist of the closest unscanned leaf.  Ranking by the
+    compressed bounds only lowers mindists, so the certificate stays
+    conservative."""
+    q = qs.shape[0]
+    n_l, s, _ = dev.leaf_pts.shape
+    c = min(c, n_l)
+    if dev.compressed:
+        blo, bhi = dev.leaf_lo_c, dev.leaf_hi_c
+    else:
+        blo, bhi = dev.leaf_lo, dev.leaf_hi
+    mind = kops.leaf_mindist_tiled(qs, blo, bhi)                # (Q, L)
+    cand = torch.topk(mind, c, dim=1, largest=False).indices    # (Q, C)
+    q_rep = torch.arange(q, dtype=torch.int32, device=qs.device)
+    d2 = kops.pair_dist2(
+        qs, dev.leaf_pts, dev.leaf_counts, q_rep.repeat_interleave(c),
+        cand.reshape(-1).to(torch.int32),
+    ).reshape(q, c, s)
+    kk = min(k, c * s)
+    kl = min(kk, s)
+    # two-level merge: top-k within each leaf block, then across the C
+    # block winners (same result set, smaller sort fronts)
+    d2l, til = torch.topk(d2, kl, dim=2, largest=False)        # (Q, C, kl)
+    d2k, tim = torch.topk(d2l.reshape(q, c * kl), kk, dim=1, largest=False)
+    ti = torch.gather(til.reshape(q, c * kl), 1, tim) + (tim // kl) * s
+    leaf_sel = torch.gather(cand, 1, ti // s)
+    ids = dev.leaf_ids[leaf_sel, ti % s]
+    if c >= n_l:
+        exact = torch.ones(q, dtype=torch.bool, device=qs.device)
+    elif kk < k:  # fewer candidate slots than k: only a full scan certifies
+        exact = torch.zeros(q, dtype=torch.bool, device=qs.device)
+    else:
+        # in place: ``mind`` is not read again
+        unscanned = mind.scatter_(1, cand, float("inf")).min(dim=1).values
+        exact = d2k[:, -1] <= unscanned
+    kf = min(k, n_l * s)
+    if kf > kk:
+        ids = torch.cat([ids, ids.new_full((q, kf - kk), -1)], dim=1)
+        d2k = torch.cat([d2k, d2k.new_full((q, kf - kk), BIG)], dim=1)
+    return ids, d2k, exact
+
+
+def _knn_pending(qs: torch.Tensor, exact: torch.Tensor, p: int):
+    """Pack the failed queries' indices into a ``p``-slot bucket and gather
+    their coordinates on the device; slots past the failure count are
+    marked invalid."""
+    pos, ranks = _compact_idx(_cumsum(~exact), 1, p)
+    n_fail = (~exact).sum()
+    return pos, ranks <= n_fail, qs[pos]
+
+
+def _knn_merge_round(bufs, b0: int, idx, valid, new) -> torch.Tensor:
+    """Scatter a round's results over the result buffers, in place.
+
+    The buffers carry one sentinel row past the batch: invalid bucket
+    slots are routed there and dropped, so they never race a genuine
+    update (scatter order among duplicate indices is undefined).  Returns
+    the remaining failed-certificate count as a device scalar."""
+    idx_w = torch.where(valid, idx, b0)
+    for buf, val in zip(bufs, new):
+        buf.index_copy_(0, idx_w, val)
+    return (~bufs[2][:b0]).sum()
+
+
+def _knn_batch(dev: DeviceTable, qs: np.ndarray, k: int,
+               n_candidate_leaves: int | None, max_rounds: int | None):
+    """Budget escalation on the device: returns the (b0, min(k, L*S)) id
+    and distance buffers, the exact mask and whether the last round
+    scanned every leaf."""
+    b0 = qs.shape[0]
+    s = dev.leaf_size
+    cap = _pow2(dev.n_leaves)
+    if n_candidate_leaves is None:
+        c = min(_pow2(max(8, -(-2 * k) // s)), cap)
+    else:
+        c = min(_pow2(max(n_candidate_leaves, 1)), cap)
+    qt = torch.from_numpy(qs).to(dev.device)
+    ids, d2k, exact = _knn_core(dev, qt, k, c)
+    # one sentinel row past the batch absorbs the padding slots of merges
+    bufs = tuple(torch.cat([t, t[:1]]) for t in (ids, d2k, exact))
+    full_scan = c >= dev.n_leaves
+    n_fail = int((~exact).sum()) if not full_scan else 0  # host sync
+    rounds = 0
+    while n_fail and (max_rounds is None or rounds < max_rounds):
+        c = min(c * 2, cap)
+        idx, valid, qsel = _knn_pending(qt, bufs[2][:b0], _pow2(n_fail))
+        nfail = _knn_merge_round(bufs, b0, idx, valid, _knn_core(dev, qsel, k, c))
+        full_scan = c >= dev.n_leaves
+        n_fail = int(nfail) if not full_scan else 0       # host sync
+        rounds += 1
+    return bufs[0][:b0], bufs[1][:b0], bufs[2][:b0], full_scan
+
+
+def knn_query_batch_torch(dev: DeviceTable, qs, k: int, *,
+                          n_candidate_leaves: int | None = None,
+                          return_dists: bool = False,
+                          max_rounds: int | None = None,
+                          return_exact: bool = False):
+    """Batched k-NN: per-query ascending-distance row-id arrays of length
+    ``min(k, live points)``.
+
+    The candidate budget starts at a small power of two and doubles for
+    the queries whose certificate failed until every certificate holds or
+    the whole leaf table is scanned, so the ids are the exact k nearest
+    (among exact ties the chosen ids may differ from another engine's).
+    ``return_dists`` adds the float32 squared distances; ``max_rounds``
+    caps the escalation rounds after the first, and ``return_exact`` adds
+    the per-query mask of answers the certificate covers."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if max_rounds is not None and max_rounds < 0:
+        raise ValueError(f"max_rounds must be >= 0, got {max_rounds}")
+    qs = np.atleast_2d(np.asarray(qs, dtype=np.float32))
+    if qs.ndim != 2 or qs.shape[1] != dev.dim:
+        raise ValueError(f"queries must be (Q, {dev.dim}), got {qs.shape}")
+    q0 = qs.shape[0]
+    if dev.n_leaves == 0:  # partial export with nothing refined yet
+        out = ([np.zeros(0, dtype=np.int64) for _ in range(q0)],)
+        if return_dists:
+            out += ([np.zeros(0, dtype=np.float32) for _ in range(q0)],)
+        if return_exact:
+            out += (np.ones(q0, dtype=bool),)
+        return out if len(out) > 1 else out[0]
+    ids_b, d2_b, exact_b, full_scan = _knn_batch(
+        dev, qs, k, n_candidate_leaves, max_rounds
+    )
+    m = min(k, dev.live_points())
+    ids = ids_b[:, :m].cpu().numpy()
+    out = ([ids[j].astype(np.int64) for j in range(q0)],)
+    if return_dists:
+        d2k = d2_b[:, :m].cpu().numpy()
+        out += ([d2k[j] for j in range(q0)],)
+    if return_exact:
+        if full_scan:  # whole leaf table scanned: vacuously exact
+            out += (np.ones(q0, dtype=bool),)
+        else:
+            out += (exact_b.cpu().numpy(),)
+    return out if len(out) > 1 else out[0]
