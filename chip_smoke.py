@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main and retrieval paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -13,19 +14,38 @@ Phases (any failure exits non-zero; nothing is caught):
 3. Main path at d = 2: ``osm_like(10_000_000, seed=7)`` is bulk loaded by
    FMBI on the host, exported to the card plain and compressed, and a
    1024-window batch and a 1024-query k = 16 k-NN batch run on each export.
-   The launch counts are zeroed just before and read just after; every
-   kernel must have launched.  The first 32 windows and the first 16 k-NN
+   The launch counts are zeroed just before and read just after; each of
+   the path's four kernels must have launched.  The first 32 windows and the first 16 k-NN
    queries are held against a NumPy brute force over all points (equal id
    sets; equal f32 distance sequences).
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-5. Kernels: each kernel is called on the inputs the main path gave it (the
-   largest call per kernel and bound type, recorded during phase 3) and
-   held bit for bit against its plain PyTorch version on the card; both
-   are timed with CUDA events.  The same comparison runs at d = 5.
+5. Retrieval at d = 2 (run right after phase 3, while its points and
+   index are in memory): ``RetrievalServer(points, levels=15)`` builds the
+   balanced grid index on the card over phase 3's points (f32), then runs,
+   each cold and warm: ``knn`` over phase 3's 1024 queries (k = 16, 16
+   candidate leaves), ``window_count`` over phase 3's 1024 windows,
+   ``knn_kernel`` (brute force) over the first 64 queries, an adaptive
+   ``knn`` stream (``route`` each batch), ``route`` of every point (FMBI's
+   Step-2 shape) and a snapshot boot (phase 3's FMBI index saved, served
+   by ``RetrievalServer.from_snapshot``, ``knn`` through
+   ``nearest_leaf``).  The counts are zeroed before and read after; each
+   of the phase's four kernels must have launched.  Every window count
+   must equal phase 3's fused window batch (f32 export), and the first 16
+   certified ``knn`` answers and 16 ``knn_kernel`` answers the NumPy brute
+   force.
+6. The same at d = 5 over phase 4's points and queries, ``levels=13``.
+7. Kernels: each kernel is called on the inputs its path gave it (the
+   largest call per kernel and bound type for ``box_hits`` and the
+   retrieval kernels, the first for the others, recorded during phases 3
+   and 5) and held bit for bit against its plain PyTorch version on the
+   card; both are timed with CUDA events, and ``pairwise_dist2`` beside
+   ``torch.cdist``.  The same comparison runs at d = 5.
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
-per export (device busy time, idle share, time by kernel name).  The line
+per export and of the retrieval ``knn``, ``window_count`` and
+``knn_kernel`` batches (device busy time, idle share, time by kernel
+name).  The line
 before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the ``src/`` tree beside this file, it exits non-zero and prints no
@@ -38,6 +58,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,13 +76,33 @@ REPLACES = {
                      "src/repro/kernels/knn_topk.py:142"),
     "pair_dist2": ("src/repro_torch/kernels/csrc/knn_topk.cu",
                    "src/repro/kernels/knn_topk.py:192"),
+    "partition_assign": ("src/repro_torch/kernels/csrc/partition_assign.cu",
+                         "src/repro/kernels/partition_assign.py:48"),
+    "window_count_gathered": ("src/repro_torch/kernels/csrc/window_filter.cu",
+                              "src/repro/kernels/window_filter.py:183"),
+    "pairwise_dist2": ("src/repro_torch/kernels/csrc/knn_topk.cu",
+                       "src/repro/kernels/knn_topk.py:96"),
+    "gathered_dist2": ("src/repro_torch/kernels/csrc/knn_topk.cu",
+                       "src/repro/kernels/knn_topk.py:59"),
 }
+MAIN_PATH = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
+RETRIEVAL = ("partition_assign", "window_count_gathered", "pairwise_dist2",
+             "gathered_dist2")
 OPS_NAME = {
     "box_hits": "box_hits_tiled",
     "pair_window_ids": "pair_window_ids",
     "leaf_mindist": "leaf_mindist_tiled",
     "pair_dist2": "pair_dist2",
+    "partition_assign": "partition_assign",
+    "window_count_gathered": "window_count_gathered",
+    "pairwise_dist2": "pairwise_dist2",
+    "gathered_dist2": "gathered_dist2",
 }
+# the argument whose dtype keys a recorded call (the bounds or the points)
+BOUND_ARG = {"box_hits": 0, "pair_window_ids": 2, "leaf_mindist": 1,
+             "pair_dist2": 1, "partition_assign": 0, "window_count_gathered": 2,
+             "pairwise_dist2": 1, "gathered_dist2": 1}
+LARGEST = ("box_hits",) + RETRIEVAL
 
 
 def log(*a) -> None:
@@ -72,18 +113,20 @@ def log(*a) -> None:
 # recording the main path's kernel inputs
 # --------------------------------------------------------------------------
 class Recorder:
-    """Wraps the public kernel wrappers while the main path runs and keeps,
-    per kernel and bound dtype, the arguments of one call: the largest
-    level block for ``box_hits``, the first call (the whole batch's first
-    round or first pair chunk) for the others."""
+    """Wraps the public wrappers of ``names`` while a path runs and keeps,
+    per kernel and bound dtype, the arguments of one call: the largest for
+    ``box_hits`` and the retrieval kernels, the first call (the whole
+    batch's first round or first pair chunk) for the others."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, names):
         self.ops = ops
+        self.names = names
         self.calls: dict = {}
         self._orig = {}
 
     def __enter__(self):
-        for name, fn_name in OPS_NAME.items():
+        for name in self.names:
+            fn_name = OPS_NAME[name]
             orig = getattr(self.ops, fn_name)
             self._orig[fn_name] = orig
             setattr(self.ops, fn_name, self._wrap(name, orig))
@@ -94,14 +137,13 @@ class Recorder:
             setattr(self.ops, fn_name, orig)
 
     def _wrap(self, name, orig):
-        def call(*args):
-            out = orig(*args)
+        def call(*args, **kw):
+            out = orig(*args, **kw)
             first = out[0] if isinstance(out, tuple) else out
-            bounds = args[2] if name == "pair_window_ids" else args[0 if name == "box_hits" else 1]
-            key = (name, str(bounds.dtype).replace("torch.", ""))
+            key = (name, str(args[BOUND_ARG[name]].dtype).replace("torch.", ""))
             if key not in self.calls or (
-                    name == "box_hits" and first.numel() > self.calls[key][1]):
-                self.calls[key] = (args, first.numel())
+                    name in LARGEST and first.numel() > self.calls[key][2]):
+                self.calls[key] = (args, kw, first.numel())
             return out
         return call
 
@@ -141,6 +183,26 @@ def check_knn(full, ids, d2, k) -> None:
     if m < n and want[m - 1] < want[m]:  # no tie at the k-th boundary
         if set(ids.tolist()) != set(part[:m].tolist()):
             raise AssertionError("k-NN ids differ from brute force")
+
+
+# --------------------------------------------------------------------------
+# timing one batch
+# --------------------------------------------------------------------------
+def timed_runs(fn, torch, launches, runs=2):
+    """Run ``fn`` ``runs`` times (the first includes one-time set-up);
+    returns its last result and ``{"wall_s": [...], "launches": the
+    launches of the last run, by kernel}``."""
+    times = []
+    for _ in range(runs):
+        before = launches.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = launches.counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return res, {"wall_s": times, "launches": delta}
 
 
 # --------------------------------------------------------------------------
@@ -186,39 +248,28 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
     log(f"[{tag}] n={n} d={d} bulk_load {out['bulk_load_s']:.3f} s, "
         f"{dev.n_leaves} leaves of <= {dev.leaf_size} slots, {len(dev.levels)} levels")
 
-    recorder = Recorder(ops)
+    recorder = Recorder(ops, MAIN_PATH)
     launches.reset()
     batches = {}
     with recorder:
         for comp, dv in devs.items():
             name = "bf16" if comp else "f32"
-            for kind in ("window", "knn"):
-                times = []
-                for _ in range(3):  # the first run includes one-time set-up
-                    before = launches.counts()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    if kind == "window":
-                        res = rt.window_query_batch_torch(dv, los, his)
-                    else:
-                        res = rt.knn_query_batch_torch(dv, qs, k, return_dists=True)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                    after = launches.counts()
+            runs = {"window": lambda: rt.window_query_batch_torch(dv, los, his),
+                    "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, return_dists=True)}
+            for kind, run in runs.items():
+                res, rec = timed_runs(run, torch, launches, runs=3)
                 batches[(kind, name)] = res
-                delta = {kk: after[kk] - before[kk] for kk in after}
-                rec = {"wall_s": times, "launches": delta}
                 if kind == "window":
-                    rec["chunks"] = delta["pair_window_ids"]
+                    rec["chunks"] = rec["launches"].get("pair_window_ids", 0)
                     rec["ids"] = int(sum(len(r) for r in res))
                 else:
-                    rec["rounds"] = delta["leaf_mindist"]
+                    rec["rounds"] = rec["launches"].get("leaf_mindist", 0)
                 out[f"{kind}_{name}"] = rec
-                log(f"[{tag}] {kind} batch ({name} bounds): wall {times} s, launches {delta}")
+                log(f"[{tag}] {kind} batch ({name} bounds): {rec}")
     counts = launches.counts()
     out["launches"] = counts
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    missing = [kk for kk, v in counts.items() if v == 0]
+    missing = [kk for kk in MAIN_PATH if counts[kk] == 0]
     if missing:
         raise AssertionError(f"[{tag}] kernels not launched on the main path: {missing}")
     log(f"[{tag}] main-path launches {counts}; max_memory_allocated "
@@ -254,31 +305,156 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
             raise AssertionError(f"[{tag}] compressed and plain k-NN distances differ")
     if profile:
         out["profile"] = {
-            name: profile_batches(dv, los, his, qs, k, torch, rt)
+            name: profile_batches({
+                "window": lambda: rt.window_query_batch_torch(dv, los, his),
+                "knn": lambda: rt.knn_query_batch_torch(dv, qs, k)}, torch)
             for name, dv in (("f32", devs[False]), ("bf16", devs[True]))
         }
         log(f"[{tag}] profile: {out['profile']}")
     log(f"[{tag}] 32 windows and 16 k-NN queries per export equal the brute force")
+    inputs = {"index": idx, "los": los, "his": his, "qs": qs,
+              "window_counts": np.array([len(r) for r in batches[("window", "f32")]])}
+    return out, recorder.calls, inputs
+
+
+# --------------------------------------------------------------------------
+# the retrieval path (balanced grid index + RetrievalServer)
+# --------------------------------------------------------------------------
+def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
+                   n_kernel=64, n_check=16, device="cuda", profile=False):
+    """Build ``RetrievalServer(pts, levels)`` on the card, run its batches
+    cold and warm with the launch counts zeroed before and read after, and
+    check them against phase 3's (or 4's) fused window counts and the
+    NumPy brute force.  Returns the measurements and the recorded kernel
+    calls."""
+    from repro_torch.core import grid_index as GI
+    from repro_torch.kernels import ops
+
+    n, d = pts.shape
+    pts32 = pts.astype(np.float32)
+    lo32 = inputs["los"].astype(np.float32)
+    hi32 = inputs["his"].astype(np.float32)
+    qs32 = inputs["qs"].astype(np.float32)
+    out = {"n": n, "d": d, "levels": levels, "k": k}
+    recorder = Recorder(ops, RETRIEVAL)
+    launches.reset()
+    with recorder:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = rt.RetrievalServer(pts32, levels=levels, device=device)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        index = srv.index
+        out.update(leaves=index.n_leaves, leaf_size=index.leaf_size)
+        inter, contained = GI._leaf_window_masks(
+            index, torch.from_numpy(lo32).to(device), torch.from_numpy(hi32).to(device))
+        straddle = (inter & ~contained).sum(dim=1)
+        c = GI._pow2(max(int(straddle.max()), 1))
+        out["window_budget_c"] = c
+        out["straddle_mean"] = float(straddle.float().mean())
+        out["gathered_bytes"] = len(lo32) * c * index.leaf_size * (4 * d + 4)
+        del inter, contained
+        log(f"[{tag}] build {out['build_s']:.3f} s: {index.n_leaves} leaves of "
+            f"{index.leaf_size} slots; window budget c = {c} (mean straddle "
+            f"{out['straddle_mean']:.1f}), gathered {out['gathered_bytes']} B")
+
+        knn_res, out["knn"] = timed_runs(
+            lambda: srv.knn(qs32, k, n_candidate_leaves=16), torch, launches)
+        counts, out["window_count"] = timed_runs(
+            lambda: GI.window_count(index, lo32, hi32).cpu().numpy(), torch, launches)
+        kk_res, out["knn_kernel"] = timed_runs(
+            lambda: srv.knn_kernel(qs32[:n_kernel], k), torch, launches)
+        srv.adaptive = True
+        srng = np.random.default_rng(13)
+        stream = [(srng.random((64, d)) * 0.05 + 0.6) for _ in range(16)]
+        _, out["adaptive_stream"] = timed_runs(
+            lambda: [srv.knn(b, k) for b in stream], torch, launches)
+        out["adaptive_stream"].update(hit_rate=srv.stats.hit_rate,
+                                      queries=srv.stats.queries)
+        pts_dev = torch.from_numpy(pts32).to(device)
+        leaf_of, out["route_all"] = timed_runs(lambda: GI.route(index, pts_dev),
+                                               torch, launches)
+        in_box = ((index.leaf_lo[leaf_of.long()] <= pts_dev)
+                  & (pts_dev <= index.leaf_hi[leaf_of.long()])).all(dim=1)
+        out["route_all"]["share_in_own_box"] = float(in_box.float().mean())
+        del pts_dev, leaf_of, in_box
+
+        snap_dir = REPO / "build" / "chip_smoke"
+        snap_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=snap_dir) as tmp:
+            path = pathlib.Path(tmp) / "index.npz"
+            t0 = time.perf_counter()
+            inputs["index"].save(path)
+            out["snapshot_save_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            boot = rt.RetrievalServer.from_snapshot(path, adaptive=True, device=device)
+            torch.cuda.synchronize()
+            out["snapshot_boot_s"] = time.perf_counter() - t0
+        snap_res, out["snapshot_knn"] = timed_runs(
+            lambda: boot.knn(qs32, k, n_candidate_leaves=16), torch, launches)
+        out["snapshot_grid"] = {"leaves": boot.index.n_leaves,
+                                "leaf_size": boot.index.leaf_size}
+    launched = launches.counts()
+    out["launches"] = launched
+    missing = [kk for kk in RETRIEVAL if launched[kk] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] retrieval kernels not launched: {missing}")
+    for name in ("knn", "window_count", "knn_kernel", "adaptive_stream", "route_all",
+                 "snapshot_knn"):
+        log(f"[{tag}] {name}: {out[name]}")
+    log(f"[{tag}] snapshot save {out['snapshot_save_s']:.3f} s, boot "
+        f"{out['snapshot_boot_s']:.3f} s ({out['snapshot_grid']}); retrieval "
+        f"launches {launched}")
+
+    if counts.shape != (len(lo32),) or not np.array_equal(counts, inputs["window_counts"]):
+        bad = np.flatnonzero(counts != inputs["window_counts"])
+        raise AssertionError(f"[{tag}] window_count differs from the fused window "
+                             f"batch at {len(bad)} windows, first {bad[:5]}")
+    rows, d2, exact = knn_res
+    out["knn_exact_flags"] = int(exact.sum())
+    checked = 0
+    for i in np.flatnonzero(exact)[:n_check]:
+        check_knn(brute_d2(pts32, qs32[i]), rows[i], d2[i], k)
+        checked += 1
+    srows, sd2, sexact = snap_res
+    out["snapshot_exact_flags"] = int(sexact.sum())
+    for i in np.flatnonzero(sexact)[:4]:
+        check_knn(brute_d2(pts32, qs32[i]), srows[i], sd2[i], k)
+    kidx, kd2 = kk_res
+    krows = index.row_ids.cpu().numpy()[kidx]
+    for i in range(min(n_check, n_kernel)):
+        check_knn(brute_d2(pts32, qs32[i]), krows[i], kd2[i], k)
+    if checked < n_check:
+        raise AssertionError(f"[{tag}] only {checked} certified k-NN answers")
+    log(f"[{tag}] all {len(counts)} window counts equal the fused batch; "
+        f"{out['knn_exact_flags']} of {len(qs32)} knn answers certified, the first "
+        f"{checked} and {n_check} knn_kernel answers equal the brute force; "
+        f"{out['route_all']['share_in_own_box']:.6f} of the points lie in their "
+        f"routed leaf's box")
+    if profile:
+        srv.adaptive = False
+        out["profile"] = profile_batches({
+            "knn": lambda: srv.knn(qs32, k, n_candidate_leaves=16),
+            "window_count": lambda: GI.window_count(index, lo32, hi32).cpu(),
+            "knn_kernel": lambda: srv.knn_kernel(qs32[:n_kernel], k)}, torch)
+        log(f"[{tag}] profile: {out['profile']}")
+    del srv, boot
     return out, recorder.calls
 
 
 # --------------------------------------------------------------------------
 # device busy and idle share of one batch (torch.profiler)
 # --------------------------------------------------------------------------
-def profile_batches(dev, los, his, qs, k, torch, rt) -> dict:
-    """Trace one window batch and one k-NN batch (after warm-up runs) and
-    report, per batch, the host wall time, the device busy time (the union
-    of the CUDA kernel and copy intervals in the trace), the idle share and
-    the device time by kernel name."""
+def profile_batches(runs: dict, torch) -> dict:
+    """Trace one run of each batch in ``runs`` (name -> callable, after a
+    warm-up run) and report, per batch, the host wall time, the device busy
+    time (the union of the CUDA kernel and copy intervals in the trace),
+    the idle share and the device time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for kind in ("window", "knn"):
-        def run():
-            if kind == "window":
-                rt.window_query_batch_torch(dev, los, his)
-            else:
-                rt.knn_query_batch_torch(dev, qs, k)
+    for kind, run in runs.items():
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -311,7 +487,7 @@ def profile_batches(dev, los, his, qs, k, torch, rt) -> dict:
 # --------------------------------------------------------------------------
 # kernel phase
 # --------------------------------------------------------------------------
-def byte_and_op_counts(name, args, out, torch):
+def byte_and_op_counts(name, args, kw, out, torch):
     """Bytes the function must move (each input read once, each output
     written once, counting what these inputs need) and its operations."""
     if name == "box_hits":
@@ -348,6 +524,28 @@ def byte_and_op_counts(name, args, out, torch):
         qb = int(torch.unique(qi.long()).numel()) * 4 * d
         b = 8 * p + qb + leaves.numel() * 4 + pts_b + p * s * 4
         return b, int(cnt[li64].clamp(max=s).sum()) * 3 * d
+    if name == "partition_assign":
+        pts, sdim, sval = args
+        n, d = pts.shape
+        levels = kw["levels"]
+        # points and leaf ids once, and the table entries a descent can reach
+        return n * d * 4 + n * 4 + ((1 << levels) - 1) * 8, n * levels
+    if name == "window_count_gathered":
+        lo, hi, pts, valid = args
+        nq, npp, d = pts.shape
+        nv = int((valid > 0).sum())
+        return 2 * nq * d * 4 + nq * npp * 4 + nv * d * 4 + nq * 4, nv * 2 * d
+    if name == "gathered_dist2":
+        q, pts, valid = args
+        nq, npp, d = pts.shape
+        nv = int((valid > 0).sum())
+        return nq * d * 4 + nq * npp * 4 + nv * d * 4 + nq * npp * 4, nv * 3 * d
+    if name == "pairwise_dist2":
+        q, pts, valid = args
+        nq, d = q.shape
+        n_p = pts.shape[0]
+        nv = int((valid > 0).sum())
+        return nq * d * 4 + n_p * 4 + nv * d * 4 + nq * n_p * 4, nq * nv * 3 * d
     raise KeyError(name)
 
 
@@ -376,20 +574,31 @@ def time_ms(fn, reps, torch) -> float:
 
 
 def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
-    from repro_torch.kernels import knn_topk, ref, window_filter
+    from repro_torch.kernels import knn_topk, partition_assign, ref, window_filter
 
     kernel = {"box_hits": window_filter.box_hits,
               "pair_window_ids": window_filter.pair_window_ids,
               "leaf_mindist": knn_topk.leaf_mindist,
-              "pair_dist2": knn_topk.pair_dist2}
+              "pair_dist2": knn_topk.pair_dist2,
+              "partition_assign": partition_assign.partition_assign,
+              "window_count_gathered": window_filter.window_count_gathered,
+              "pairwise_dist2": knn_topk.pairwise_dist2,
+              "gathered_dist2": knn_topk.gathered_dist2}
     plain = {"box_hits": ref.box_hits_tiled_ref,
              "pair_window_ids": ref.pair_window_ids_ref,
              "leaf_mindist": ref.leaf_mindist_ref,
-             "pair_dist2": ref.pair_dist2_ref}
+             "pair_dist2": ref.pair_dist2_ref,
+             "partition_assign": ref.partition_assign_ref,
+             "window_count_gathered": ref.window_count_gathered_ref,
+             "pairwise_dist2": ref.pairwise_dist2_ref,
+             "gathered_dist2": ref.gathered_dist2_ref}
+    # the nearest single PyTorch call, timed beside the kernel and used
+    # nowhere in the port (unsquared and unmasked)
+    library = {"pairwise_dist2": lambda q, p, valid: torch.cdist(q, p)}
     res = {}
-    for (name, bdtype), (args, _) in sorted(calls.items()):
-        got = kernel[name](*args)
-        want = plain[name](*args)
+    for (name, bdtype), (args, kw, _) in sorted(calls.items()):
+        got = kernel[name](*args, **kw)
+        want = plain[name](*args, **kw)
         torch.cuda.synchronize()
         got_t = got if isinstance(got, tuple) else (got,)
         want_t = want if isinstance(want, tuple) else (want,)
@@ -397,16 +606,19 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
         if not all(bitwise_equal(g, w, torch) for g, w in zip(got_t, want_t)):
             raise AssertionError(f"{name} ({bdtype}) differs from its plain version: "
                                  f"max abs err {err}")
-        rec = {"shapes": [list(a.shape) for a in args], "max_abs_err": err}
+        rec = {"shapes": [list(a.shape) for a in args], "max_abs_err": err, **kw}
         if timed:
-            b, ops = byte_and_op_counts(name, args, got_t, torch)
+            b, ops = byte_and_op_counts(name, args, kw, got_t, torch)
             bytes_ms = b / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / F32_OPS_PER_S * 1e3
             rec.update(
-                ms=time_ms(lambda: kernel[name](*args), reps, torch),
-                plain_ms=time_ms(lambda: plain[name](*args), max(reps // 4, 3), torch),
+                ms=time_ms(lambda: kernel[name](*args, **kw), reps, torch),
+                plain_ms=time_ms(lambda: plain[name](*args, **kw), max(reps // 4, 3),
+                                 torch),
                 bytes=b, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=(time_ms(lambda: library[name](*args), reps, torch)
+                            if name in library else None),
             )
         res[(name, bdtype)] = rec
         log(f"kernel {name} ({bdtype}): bitwise equal to plain; {rec}")
@@ -453,27 +665,34 @@ def main(argv=None) -> int:
 
     results = {"device": kind, "count": count, "nvidia_smi": smi, "build_s": build_s}
     pts = osm_like(10_000_000, seed=7)
-    results["d2"], calls2 = main_path("d=2", pts, 11, 1024, 1024, 16, torch, rt,
-                                      launches, profile=args.profile)
-    del pts
+    results["d2"], calls2, inputs = main_path("d=2", pts, 11, 1024, 1024, 16, torch,
+                                              rt, launches, profile=args.profile)
+    results["retrieval_d2"], rcalls2 = retrieval_path("retrieval d=2", pts, inputs, 15,
+                                                      16, torch, rt, launches,
+                                                      profile=args.profile)
+    del pts, inputs
     pts5 = nycyt_like(2_000_000)
-    results["d5"], calls5 = main_path("d=5", pts5, 11, 1024, 1024, 16, torch, rt,
-                                      launches, half_width=0.05, at_points=True,
-                                      profile=args.profile)
-    del pts5
+    results["d5"], calls5, inputs = main_path("d=5", pts5, 11, 1024, 1024, 16, torch,
+                                              rt, launches, half_width=0.05,
+                                              at_points=True, profile=args.profile)
+    results["retrieval_d5"], rcalls5 = retrieval_path("retrieval d=5", pts5, inputs, 13,
+                                                      16, torch, rt, launches,
+                                                      profile=args.profile)
+    del pts5, inputs
 
-    k2 = kernel_phase(calls2, torch, timed=True)
-    kernel_phase(calls5, torch, timed=False)
+    k2 = kernel_phase({**calls2, **rcalls2}, torch, timed=True)
+    kernel_phase({**calls5, **rcalls5}, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():
         f32 = k2[(name, "float32")]
+        phase = "d2" if name in MAIN_PATH else "retrieval_d2"
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results["d2"]["launches"][name],
+            "launches": results[phase]["launches"][name],
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-            "bound_by": f32["bound_by"], "library_ms": None,
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
         }
         bf = k2.get((name, "bfloat16"))
         if bf is not None:

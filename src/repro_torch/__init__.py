@@ -1,11 +1,15 @@
 """PyTorch and CUDA port of the FMBI/AMBI reproduction (``repro``).
 
-This slice carries the main path: the FMBI bulk load on the host, the
-device export (``DeviceTable``) and the fused window and k-NN batches on
-four hand-written Hopper kernels.  It imports ``torch`` and numpy only.
+It carries the main path: the FMBI bulk load on the host, the device
+export (``DeviceTable``) and the fused window and k-NN batches; and the
+retrieval path: the balanced ``GridIndex`` built on the device, its
+routing, window counts and k-NN, served by ``RetrievalServer``.  Eight
+hand-written Hopper kernels carry both.  It imports ``torch`` and numpy
+only.
 """
 from .core import (
     DeviceTable,
+    GridIndex,
     Index,
     IOStats,
     NodeTable,
@@ -14,13 +18,17 @@ from .core import (
     knn_query_batch_torch,
     window_query_batch_torch,
 )
+from .serve import RetrievalServer, RetrievalStats
 
 __all__ = [
     "DeviceTable",
+    "GridIndex",
     "Index",
     "IOStats",
     "NodeTable",
     "PageStore",
+    "RetrievalServer",
+    "RetrievalStats",
     "bulk_load",
     "knn_query_batch_torch",
     "window_query_batch_torch",

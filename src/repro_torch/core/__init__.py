@@ -1,6 +1,7 @@
-"""Host layers (copies of the JAX package's NumPy modules) and the device
-query engine of the port."""
-from .convert import index_from_arrays, table_from_arrays
+"""Host layers (copies of the JAX package's NumPy modules), the device
+query engine and the balanced grid index of the port."""
+from .convert import grid_index_from_arrays, index_from_arrays, table_from_arrays
+from .grid_index import GridIndex
 from .fmbi import Index, Node, bulk_load, merge_branches, refine_subspace
 from .nodetable import NodeTable, NodeView, compress_boxes_bf16
 from .pagestore import IOStats, PageStore, branch_capacity, leaf_capacity
@@ -13,6 +14,7 @@ from .queries_torch import (
 
 __all__ = [
     "DeviceTable",
+    "GridIndex",
     "Index",
     "IOStats",
     "Node",
@@ -23,6 +25,7 @@ __all__ = [
     "branch_capacity",
     "bulk_load",
     "compress_boxes_bf16",
+    "grid_index_from_arrays",
     "index_from_arrays",
     "knn_query_batch_torch",
     "leaf_capacity",

@@ -30,13 +30,16 @@ accelerator boundary: ``save``/``load`` snapshot an index (optionally with
 its points) into a single ``.npz`` (the same format the JAX package writes,
 so either side loads the other's snapshots), ``merged`` combines
 per-server tables into one global index for distributed snapshot shipping,
-and ``device_layout`` re-blocks the table into the fixed-shape arrays the
+``to_grid_index`` re-lays the leaf level into the ``GridIndex`` grid so the
+retrieval server can boot from a snapshot without rebuilding, and
+``device_layout`` re-blocks the table into the fixed-shape arrays the
 CUDA query engine (``core/queries_torch.py``) uploads.
 
 This module is the PyTorch port's own copy of the JAX package's node
 table.  It differs in three places: the bf16 compressed bounds come back as
-``np.uint16`` bit patterns (no ``ml_dtypes``), there is no ``JaxIndex``
-bridge, and the mutators carry no writer-lock sanitizer hooks yet.
+``np.uint16`` bit patterns (no ``ml_dtypes``), the ``JaxIndex`` bridge is
+``to_grid_index`` (host tensors of the port's ``GridIndex``), and the
+mutators carry no writer-lock sanitizer hooks yet.
 """
 from __future__ import annotations
 
@@ -859,6 +862,62 @@ class NodeTable:
         return [
             self.subtable(b, sizes=sizes) for b in self.shard_plan(m, sizes)
         ]
+
+    # -- grid-index bridge -----------------------------------------------------
+    def to_grid_index(self, points: np.ndarray, dtype=np.float32):
+        """Re-lay the leaf level into the ``GridIndex`` grid (serving layout),
+        as host tensors; the caller moves it to the card (``.to``).
+
+        The table's leaf-contiguous ``perm`` *is* the sorted point order
+        the grid wants; leaves are padded to a uniform slot count with
+        sentinel rows (``row_id = -1``, coords at dtype-max) and the leaf
+        count to a power of two with empty boxes (``lo = +max``,
+        ``hi = -max``, whose mindist overflows to ``+inf``).  Only the leaf
+        gather runs here: no rebuild, no re-sort.  An FMBI tree has no
+        balanced split tables, so ``grid_index.route`` is not meaningful on
+        a bridged index; use ``grid_index.nearest_leaf``.
+        """
+        import torch
+
+        from .grid_index import GridIndex  # function-local: it imports the engine
+
+        if bool(self.unrefined.any()):
+            raise ValueError("bridge requires a fully refined table")
+        rows = self.leaf_rows()
+        counts = self.leaf_count[rows]
+        l_real = len(rows)
+        leaf_size = int(counts.max()) if l_real else 1
+        n_leaves = 1
+        while n_leaves < l_real:
+            n_leaves *= 2
+        levels = n_leaves.bit_length() - 1
+        d = points.shape[1]
+        big = np.finfo(dtype).max
+        grid = np.full((n_leaves * leaf_size, d), big, dtype=dtype)
+        ids = np.full(n_leaves * leaf_size, -1, dtype=np.int32)
+        sel = ragged_ranges(self.leaf_start[rows], counts)
+        within = np.arange(len(sel), dtype=np.int64) - np.repeat(
+            np.cumsum(counts) - counts, counts
+        )
+        slot = np.repeat(np.arange(l_real, dtype=np.int64) * leaf_size, counts) + within
+        data_rows = self.perm[sel]
+        grid[slot] = points[data_rows].astype(dtype)
+        ids[slot] = data_rows
+        leaf_lo = np.full((n_leaves, d), big, dtype=dtype)
+        leaf_hi = np.full((n_leaves, d), -big, dtype=dtype)
+        leaf_lo[:l_real] = self.mbb_lo[rows]
+        leaf_hi[:l_real] = self.mbb_hi[rows]
+        lv = max(levels, 1)
+        return GridIndex(
+            points_sorted=torch.from_numpy(grid),
+            row_ids=torch.from_numpy(ids),
+            split_dim=torch.zeros((lv, n_leaves), dtype=torch.int32),
+            split_val=torch.from_numpy(np.full((lv, n_leaves), np.inf, dtype=dtype)),
+            leaf_lo=torch.from_numpy(leaf_lo),
+            leaf_hi=torch.from_numpy(leaf_hi),
+            levels=levels,
+            leaf_size=leaf_size,
+        )
 
     # -- device layout --------------------------------------------------------
     def pack_leaf_blocks(

@@ -1,4 +1,4 @@
-// k-NN side of the device query engine, for Hopper (sm_90a).
+// k-NN side of the device query engines, for Hopper (sm_90a).
 //
 // leaf_mindist
 //   Replaces the Pallas kernel kernels/knn_topk.py:leaf_mindist_tiled of
@@ -24,6 +24,32 @@
 //   the block loads its own indices and query, and threads stride over
 //   the S slots.
 //
+// pairwise_dist2
+//   Replaces kernels/knn_topk.py:pairwise_dist2 (its _dist2_kernel), the
+//   distance tiles under ops.knn_topk and so RetrievalServer.knn_kernel:
+//   the (nq, np) plane of squared distances, points with valid <= 0 set to
+//   f32 max.  The Pallas kernel computes |q|^2 + |p|^2 - 2 q.p on the MXU,
+//   clamped at 0; its contract (kernels/ref.py:pairwise_dist2_ref, which
+//   the JAX package's tests hold it to within a tolerance) is the direct
+//   sum of (q - p)^2.  This kernel computes the contract, so it equals its
+//   plain version bit for bit and needs no matmul (and no TF32 switch).
+//   Bound on the H100: memory bytes, np*(4d + 4) read + nq*np*4 written;
+//   at d = 2 the work is 3d flops per output, far below the compute rate.
+//   Design: a 1-D grid over the point axis (np reaches 10M) and a 2-D one
+//   over query tiles of PD_QT on gridDim.y; the query tile sits in shared
+//   memory, each thread reads its point once and writes PD_QT outputs, and
+//   a warp writes 32 neighbouring words of each output row.
+//
+// gathered_dist2
+//   Replaces kernels/knn_topk.py:gathered_dist2, the candidate-leaf scan
+//   that core/jax_index.py:knn inlines: (nq, npp) squared distances from
+//   each query to its own gathered candidates, sum_d (p - q)^2, slots with
+//   valid <= 0 set to f32 max.
+//   Bound on the H100: memory bytes, nq*npp*(4d + 4) read (only the valid
+//   slots' points are needed) + nq*npp*4 written.  Design: one thread per
+//   (query, slot) over a flat 1-D grid; the query's coordinates come
+//   through L1, which all threads of a block share.
+//
 // Rounding: every sum runs per dimension in the plain version's order with
 // __fsub_rn / __fmul_rn / __fadd_rn, so no multiply-add is contracted into
 // an FMA and the results equal the plain PyTorch version bit for bit (the
@@ -45,6 +71,11 @@ constexpr int LM_QPT = 4;        // queries per thread
 constexpr int LM_QT = LM_QROWS * LM_QPT;  // queries per block
 
 constexpr int PAIR_THREADS = 128;
+
+constexpr int PD_THREADS = 256;  // points per block
+constexpr int PD_QT = 8;         // queries per block (gridDim.y)
+
+constexpr int GD_THREADS = 256;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t x) {
@@ -125,6 +156,54 @@ pair_dist2_kernel(const float* __restrict__ queries,
   }
 }
 
+__global__ void __launch_bounds__(PD_THREADS)
+pairwise_dist2_kernel(const float* __restrict__ queries,
+                      const float* __restrict__ points,
+                      const int32_t* __restrict__ valid,
+                      float* __restrict__ out, int nq, int np, int d) {
+  extern __shared__ float sq[];     // [PD_QT][d]
+  const int q0 = blockIdx.y * PD_QT;
+  const int nqt = min(PD_QT, nq - q0);
+  for (int i = threadIdx.x; i < nqt * d; i += PD_THREADS)
+    sq[i] = queries[static_cast<int64_t>(q0) * d + i];
+  __syncthreads();
+  const int j = blockIdx.x * PD_THREADS + threadIdx.x;
+  if (j >= np) return;
+  const bool ok = valid[j] > 0;
+  const float* pt = points + static_cast<int64_t>(j) * d;
+  for (int qi = 0; qi < nqt; ++qi) {
+    float acc = FLT_MAX;
+    if (ok) {
+      acc = 0.f;
+      for (int k = 0; k < d; ++k) {
+        const float diff = __fsub_rn(sq[qi * d + k], pt[k]);
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+      }
+    }
+    out[static_cast<int64_t>(q0 + qi) * np + j] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(GD_THREADS)
+gathered_dist2_kernel(const float* __restrict__ queries,
+                      const float* __restrict__ points,
+                      const int32_t* __restrict__ valid,
+                      float* __restrict__ out, int64_t total, int npp, int d) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * GD_THREADS + threadIdx.x;
+  if (i >= total) return;
+  float acc = FLT_MAX;
+  if (valid[i] > 0) {
+    const float* q = queries + (i / npp) * d;
+    const float* pt = points + i * d;
+    acc = 0.f;
+    for (int k = 0; k < d; ++k) {
+      const float diff = __fsub_rn(pt[k], q[k]);
+      acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+    }
+  }
+  out[i] = acc;
+}
+
 }  // namespace
 
 extern "C" int leaf_mindist_launch(const void* queries, const void* lo,
@@ -164,6 +243,37 @@ extern "C" int pair_dist2_launch(const void* queries, const void* leaf_pts,
         static_cast<const int32_t*>(q_idx),
         static_cast<const int32_t*>(leaf_idx), static_cast<float*>(out), nq,
         n_leaves, s, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pairwise_dist2_launch(const void* queries, const void* points,
+                                     const void* valid, void* out, int nq,
+                                     int np, int d, void* stream) {
+  if (nq > 0 && np > 0) {
+    const dim3 grid((np + PD_THREADS - 1) / PD_THREADS,
+                    (nq + PD_QT - 1) / PD_QT);
+    const size_t shm = static_cast<size_t>(PD_QT) * d * sizeof(float);
+    pairwise_dist2_kernel<<<grid, PD_THREADS, shm,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(queries), static_cast<const float*>(points),
+        static_cast<const int32_t*>(valid), static_cast<float*>(out), nq, np,
+        d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gathered_dist2_launch(const void* queries, const void* points,
+                                     const void* valid, void* out, int nq,
+                                     int npp, int d, void* stream) {
+  const int64_t total = static_cast<int64_t>(nq) * npp;
+  if (total > 0) {
+    const int64_t blocks = (total + GD_THREADS - 1) / GD_THREADS;
+    gathered_dist2_kernel<<<static_cast<unsigned>(blocks), GD_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(queries), static_cast<const float*>(points),
+        static_cast<const int32_t*>(valid), static_cast<float*>(out), total,
+        npp, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-// Window side of the device query engine, for Hopper (sm_90a).
+// Window side of the device query engines, for Hopper (sm_90a).
 //
 // box_hits
 //   Replaces the Pallas kernel kernels/window_filter.py:box_hits_tiled of
@@ -28,6 +28,20 @@
 //   shuffles and then shared memory.  A pair whose box re-check fails
 //   reads no points at all.
 //
+// window_count_gathered
+//   Replaces kernels/window_filter.py:window_count_gathered, the scan of
+//   core/jax_index.py:_window_count_core: (nq,) int32 counts of each
+//   window's own gathered candidate points (its straddling leaves) that
+//   lie in the window, slots with valid <= 0 excluded.  The Pallas kernel
+//   carries the sum across point tiles of a sequential grid; here a block
+//   owns one window and loops over its slots.
+//   Bound on the H100: memory bytes, nq*npp*4 (validity) + the valid
+//   slots' points (4d bytes each) + nq*(8d + 4); the work is 2d compares
+//   per slot.  Design: one block per window on gridDim.x, the window's
+//   bounds in shared memory, threads striding over the slots, and the
+//   integer count reduced with warp shuffles and then shared memory
+//   (exact in any order).
+//
 // Every index in the launch interface is int32; offsets into the arrays
 // are formed in 64 bits.
 #include <cuda_runtime.h>
@@ -42,6 +56,8 @@ constexpr int BH_WARPS = 8;      // warps per block
 constexpr int BH_NT = 64;        // boxes per block
 
 constexpr int PAIR_THREADS = 128;
+
+constexpr int WCG_THREADS = 256;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t x) {
@@ -161,6 +177,45 @@ pair_window_ids_kernel(const float* __restrict__ qlo,
   }
 }
 
+__global__ void __launch_bounds__(WCG_THREADS)
+window_count_gathered_kernel(const float* __restrict__ lo,
+                             const float* __restrict__ hi,
+                             const float* __restrict__ points,
+                             const int32_t* __restrict__ valid,
+                             int32_t* __restrict__ out, int npp, int d) {
+  __shared__ float sl[MAX_D];
+  __shared__ float sh[MAX_D];
+  __shared__ int warp_sums[WCG_THREADS / 32];
+  const int q = blockIdx.x;
+  for (int k = threadIdx.x; k < d; k += blockDim.x) {
+    sl[k] = lo[static_cast<int64_t>(q) * d + k];
+    sh[k] = hi[static_cast<int64_t>(q) * d + k];
+  }
+  __syncthreads();
+  const int64_t row = static_cast<int64_t>(q) * npp;
+  int local = 0;
+  for (int j = threadIdx.x; j < npp; j += blockDim.x) {
+    if (valid[row + j] > 0) {
+      const float* pt = points + (row + j) * d;
+      bool in = true;
+      for (int k = 0; k < d; ++k) {
+        const float v = pt[k];
+        in = in & (v >= sl[k]) & (v <= sh[k]);
+      }
+      local += in ? 1 : 0;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_down_sync(0xffffffffu, local, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = local;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int w = 0; w < WCG_THREADS / 32; ++w) t += warp_sums[w];
+    out[q] = t;
+  }
+}
+
 }  // namespace
 
 extern "C" int box_hits_launch(const void* lo, const void* hi,
@@ -206,6 +261,21 @@ extern "C" int pair_window_ids_launch(
         static_cast<const int32_t*>(pair_valid),
         static_cast<int32_t*>(out_ids), static_cast<int32_t*>(out_counts), nq,
         n_leaves, s, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int window_count_gathered_launch(const void* lo, const void* hi,
+                                            const void* points,
+                                            const void* valid, void* out,
+                                            int nq, int npp, int d,
+                                            void* stream) {
+  if (nq > 0) {
+    window_count_gathered_kernel<<<nq, WCG_THREADS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(lo), static_cast<const float*>(hi),
+        static_cast<const float*>(points), static_cast<const int32_t*>(valid),
+        static_cast<int32_t*>(out), npp, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

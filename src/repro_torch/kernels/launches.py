@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
+KERNELS = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2",
+           "partition_assign", "window_count_gathered", "pairwise_dist2",
+           "gathered_dist2")
 MAX_D = 64      # the CUDA sources stage at most this many dimensions
 INT32_MAX = 2**31 - 1
 

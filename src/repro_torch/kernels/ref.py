@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the four Hopper kernels (the correctness
-contracts).
+"""Plain PyTorch versions of the Hopper kernels (the correctness
+contracts), and the ``top_k`` selection that the port runs beside them.
 
 Same names and argument order as the JAX package's ``kernels/ref.py``.
 Each function runs on whatever device its tensors lie on: the CPU tests
@@ -91,3 +91,69 @@ def pair_dist2_ref(queries, leaf_pts, leaf_counts, q_idx, leaf_idx):
     slot = torch.arange(s, dtype=torch.int32, device=pts.device)
     valid = slot[None, :] < leaf_counts[leaf_idx][:, None]
     return torch.where(valid, acc, torch.full_like(acc, F32_MAX))
+
+
+def top_k(x, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order, the lower index first among equal values (a stable
+    sort; ``torch.topk`` leaves the order of ties unspecified)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def partition_assign_ref(points, split_dim, split_val, *, levels: int):
+    """Leaf id per point through heap-form split tables ``[level, group]``:
+    ``g = 2 g + (coord > val)`` per level, plain gathers.  Non-finite split
+    values read as f32 max (the kernel's sanitising, which changes only
+    entries a built index never selects), and split dimensions are clamped
+    to ``[0, d)`` as a JAX gather clamps its index."""
+    n, d = points.shape
+    g = torch.zeros(n, dtype=torch.int32, device=points.device)
+    rows = torch.arange(n, device=points.device)
+    val_t = torch.where(torch.isfinite(split_val), split_val,
+                        torch.full_like(split_val, F32_MAX))
+    for level in range(levels):
+        gl = g.long()
+        dim = split_dim[level, gl].long().clamp(0, d - 1)
+        coord = points[rows, dim]
+        g = g * 2 + (coord > val_t[level, gl]).to(torch.int32)
+    return g
+
+
+def pairwise_dist2_ref(queries, points, valid):
+    """(nq, np) squared distances ``sum_d (q - p)^2`` by direct subtraction,
+    accumulated per dimension; points with ``valid <= 0`` carry f32 max."""
+    acc = torch.zeros(queries.shape[0], points.shape[0], dtype=torch.float32,
+                      device=points.device)
+    for k in range(points.shape[1]):
+        diff = queries[:, k, None] - points[None, :, k]
+        acc = acc + diff * diff
+    return torch.where(valid[None, :] > 0, acc, torch.full_like(acc, F32_MAX))
+
+
+def knn_topk_ref(queries, points, valid, k: int):
+    """k nearest points per query: the full distance matrix and a top-k
+    (lower index first among equal distances).  Returns ``(idx, dists)``."""
+    neg, idx = top_k(-pairwise_dist2_ref(queries, points, valid), k)
+    return idx, -neg
+
+
+def window_count_gathered_ref(lo, hi, points, valid):
+    """(nq,) int32 in-window counts, each query over its own gathered
+    ``(npp, d)`` points, slots with ``valid <= 0`` excluded."""
+    inside = valid > 0
+    for k in range(points.shape[2]):
+        pk = points[:, :, k]
+        inside = inside & (pk >= lo[:, k, None]) & (pk <= hi[:, k, None])
+    return inside.sum(dim=1, dtype=torch.int32)
+
+
+def gathered_dist2_ref(queries, points, valid):
+    """(nq, npp) squared distances ``sum_d (p - q)^2`` from each query to
+    its own gathered points, accumulated per dimension; slots with
+    ``valid <= 0`` carry f32 max."""
+    acc = torch.zeros(points.shape[:2], dtype=torch.float32, device=points.device)
+    for k in range(points.shape[2]):
+        diff = points[:, :, k] - queries[:, k, None]
+        acc = acc + diff * diff
+    return torch.where(valid > 0, acc, torch.full_like(acc, F32_MAX))

@@ -1,8 +1,8 @@
-"""Launchers for ``csrc/window_filter.cu``: ``box_hits`` and
-``pair_window_ids`` on CUDA tensors.
+"""Launchers for ``csrc/window_filter.cu``: ``box_hits``,
+``pair_window_ids`` and ``window_count_gathered`` on CUDA tensors.
 
-They replace the JAX package's Pallas kernels ``box_hits_tiled`` and
-``pair_window_ids`` (``repro/kernels/window_filter.py``).  Each launcher
+They replace the JAX package's Pallas kernels of the same names
+(``box_hits_tiled`` for the first; ``repro/kernels/window_filter.py``).  Each launcher
 checks its arguments, allocates the outputs with ``torch.empty``, launches
 on the current stream without synchronising, raises on a launch error and
 bumps its launch count.
@@ -86,3 +86,27 @@ def pair_window_ids(qlo, qhi, leaf_lo, leaf_hi, leaf_pts, leaf_ids,
     launches.raise_on_error(rc, "pair_window_ids")
     launches.bump("pair_window_ids")
     return ids_or, counts
+
+
+def window_count_gathered(lo, hi, points, valid) -> torch.Tensor:
+    """(nq,) int32 in-window counts, each window over its own gathered
+    ``(npp, d)`` points; see ``ref.window_count_gathered_ref``."""
+    nq, npp, d = points.shape
+    launches.check_dim(d)
+    launches.check(lo, "lo", _F32, (nq, d))
+    launches.check(hi, "hi", _F32, (nq, d))
+    launches.check(points, "points", _F32, (nq, npp, d))
+    launches.check(valid, "valid", _I32, (nq, npp))
+    launches.same_device(lo, hi, points, valid)
+    launches.check_extents(nq=nq, npp=npp)
+    out = torch.empty((nq,), dtype=torch.int32, device=lo.device)
+    if nq == 0:  # nothing to launch
+        return out
+    rc = _fn("window_count_gathered_launch", 5, 3)(
+        lo.data_ptr(), hi.data_ptr(), points.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), nq, npp, d,
+        torch.cuda.current_stream(lo.device).cuda_stream,
+    )
+    launches.raise_on_error(rc, "window_count_gathered")
+    launches.bump("window_count_gathered")
+    return out

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from repro_torch.core import DeviceTable, PageStore, bulk_load
+from repro_torch.core import grid_index as GI
 from repro_torch.core import queries_torch as QT
-from repro_torch.kernels import knn_topk, launches, ops, window_filter
+from repro_torch.kernels import knn_topk, launches, ops, partition_assign, window_filter
+from repro_torch.serve import RetrievalServer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -59,7 +61,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.core.queries_torch, "
-        "repro_torch.kernels.ops, repro_torch.core.datasets\n"
+        "repro_torch.kernels.ops, repro_torch.core.datasets, "
+        "repro_torch.core.grid_index, repro_torch.serve.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -90,6 +93,26 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
     assert QT.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_grid_index_and_server_need_cuda_or_cpu(monkeypatch, tmp_path):
+    idx = _index()
+    snap = tmp_path / "index.npz"
+    idx.save(snap)
+    pts = np.random.default_rng(2).random((64, 2)).astype(np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GI.build(pts, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalServer(pts, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RetrievalServer.from_snapshot(snap)
+    host = idx.table.to_grid_index(idx.points)
+    assert host.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        host.to(None)
+    assert RetrievalServer(pts, 3, device="cpu").index.device.type == "cpu"
+    assert RetrievalServer.from_snapshot(snap, device="cpu").index.device.type == "cpu"
+
+
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -108,6 +131,17 @@ def test_ops_raise_on_other_devices():
                             _meta(4, 5, 2), _meta(4, 5, dtype=i32),
                             _meta(4, dtype=i32), _meta(6, dtype=i32),
                             _meta(6, dtype=i32), _meta(6, dtype=i32))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.partition_assign(_meta(5, 2), _meta(2, 4, dtype=i32), _meta(2, 4), levels=2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.pairwise_dist2(_meta(3, 2), _meta(9, 2))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.knn_topk(_meta(3, 2), _meta(9, 2), 2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.window_count_gathered(_meta(3, 2), _meta(3, 2), _meta(3, 7, 2),
+                                  _meta(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.gathered_dist2(_meta(3, 2), _meta(3, 7, 2), _meta(3, 7, dtype=i32))
 
 
 def test_cuda_launchers_reject_what_the_kernels_do_not_take():
@@ -127,6 +161,15 @@ def test_cuda_launchers_reject_what_the_kernels_do_not_take():
             f(3, 2), f(3, 2), f(4, 2), f(4, 2), f(4, 5, 2),
             f(4, 5, dtype=torch.int32), f(4, dtype=torch.int32),
             f(6, dtype=torch.int32), f(6, dtype=torch.int32), f(6, dtype=torch.int32))
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        partition_assign.partition_assign(f(5, 2), f(2, 4, dtype=i32), f(2, 4), levels=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        window_filter.window_count_gathered(f(3, 2), f(3, 2), f(3, 7, 2), f(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        knn_topk.gathered_dist2(f(3, 2), f(3, 7, 2), f(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="1 <= d <= 64"):
+        knn_topk.pairwise_dist2(f(3, 65), f(9, 65), f(9, dtype=i32))
     assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
 
 
@@ -137,6 +180,10 @@ def test_cpu_path_launches_no_kernel():
     c = np.random.default_rng(1).random((8, 2))
     QT.window_query_batch_torch(dev, c - 0.1, c + 0.1)
     QT.knn_query_batch_torch(dev, c, 4)
+    srv = RetrievalServer(idx.points, 4, adaptive=True, device="cpu")
+    srv.knn(c, 4)
+    srv.knn_kernel(c, 4)
+    GI.window_count(srv.index, c - 0.1, c + 0.1)
     assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
 
 

@@ -1,16 +1,20 @@
-"""The port's kernels against the JAX package's (PyTorch port, kernels 1-4).
+"""The port's kernels against the JAX package's (PyTorch port).
 
 On the CPU the port's wrappers run the plain PyTorch versions
 (``repro_torch/kernels/ref.py``); these are held against the JAX package's
 plain versions (``repro.kernels.ref``, evaluated op by op) and against its
 Pallas kernels in interpret mode, on the same numpy inputs.
 
-Tolerances: masks, ids and counts are equal.  ``leaf_mindist`` and
-``pair_dist2`` are bitwise equal to the JAX package's op-by-op plain
+Tolerances: masks, ids, leaf ids and counts are equal.  ``leaf_mindist``
+and ``pair_dist2`` are bitwise equal to the JAX package's op-by-op plain
 versions and, on grid data (multiples of 1/64, where every sum is exact),
 to the interpreted Pallas kernels.  On continuous data the interpreted
 kernels run under XLA's CPU compiler, which contracts ``acc + g * g`` into
-a fused multiply-add, so they are held within rtol 1e-6 there.
+a fused multiply-add, so they are held within rtol 1e-6 there; so are
+``gathered_dist2`` and ``pairwise_dist2`` against the JAX plain versions,
+whose ``jnp.sum`` may contract too.  ``pairwise_dist2`` against the
+interpreted Pallas kernel, which computes ``|q|^2 + |p|^2 - 2 q.p``, is
+held at ``tests/test_kernels.py``'s tolerance (rtol 1e-4, atol 1e-5).
 
 The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``
 (``gpu`` marker) and ``chip_smoke.py`` hold them against the plain versions.
@@ -21,6 +25,8 @@ import pytest
 import torch
 
 from repro.core.nodetable import compress_boxes_bf16 as compress_ref
+import jax
+
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.nodetable import compress_boxes_bf16
@@ -204,3 +210,161 @@ def test_pair_dist2_matches_jax(d, p, grid):
                                                 interpret=True)), exact=grid)
     invalid = np.arange(s)[None, :] >= counts[leaf_idx][:, None]
     assert np.all(got[invalid] == F32_MAX) and np.all(np.isfinite(got))
+
+
+# --------------------------------------------------------------------------
+# selection: ``top_k`` keeps jax.lax.top_k's order among ties
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_top_k_breaks_ties_like_jax(k):
+    rng = np.random.default_rng(k)
+    for x in (rng.integers(0, 2, (7, 64)).astype(np.int32),
+              (rng.integers(0, 5, (7, 64)) / 4.0).astype(np.float32),
+              -np.abs(rng.integers(0, 3, (7, 64))).astype(np.float32)):
+        vals, idx = ref.top_k(_t(x), k)
+        jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+
+
+# --------------------------------------------------------------------------
+# kernel 10: partition_assign (route)
+# --------------------------------------------------------------------------
+def _split_tables(rng, levels, d, grid):
+    groups = 1 << levels
+    sdim = rng.integers(0, d, (levels, groups)).astype(np.int32)
+    sval = _coords(rng, (levels, groups), grid)
+    for level in range(levels):               # entries a descent never reaches
+        sval[level, 1 << level:] = np.inf
+    return sdim, sval
+
+
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("levels", [2, 7])
+@pytest.mark.parametrize("grid", [False, True])
+def test_partition_assign_matches_jax(d, levels, grid):
+    rng = np.random.default_rng(400 + d * 3 + levels + grid)
+    pts = _coords(rng, (513, d), grid)
+    sdim, sval = _split_tables(rng, levels, d, grid)
+    got = ops.partition_assign(_t(pts), _t(sdim), _t(sval), levels=levels)
+    assert got.dtype == torch.int32 and got.shape == (513,)
+    np.testing.assert_array_equal(
+        got.numpy(), ref.partition_assign_ref(_t(pts), _t(sdim), _t(sval),
+                                              levels=levels).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.partition_assign_ref(
+            jnp.asarray(pts), jnp.asarray(sdim), jnp.asarray(sval), levels=levels)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.partition_assign(
+            pts, jnp.asarray(sdim), jnp.asarray(sval), levels=levels, interpret=True)))
+    assert got.min() >= 0 and got.max() < 1 << levels
+
+
+def test_partition_assign_sanitises_non_finite_splits_like_the_kernel():
+    """A reachable non-finite split value reads as f32 max, as the Pallas
+    wrapper sanitises it: +inf and NaN route left, and so does -inf."""
+    pts = np.array([[0.5, 0.5], [2.0, -1.0], [F32_MAX, 0.0]], np.float32)
+    sdim = np.zeros((1, 1), np.int32)
+    for v in (np.inf, -np.inf, np.nan):
+        sval = np.full((1, 1), v, np.float32)
+        got = ops.partition_assign(_t(pts), _t(sdim), _t(sval), levels=1)
+        want = jops.partition_assign(pts, jnp.asarray(sdim), jnp.asarray(sval),
+                                     levels=1, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.tolist() == [0, 0, 0]
+
+
+# --------------------------------------------------------------------------
+# kernels 6 and 7: gathered_dist2 and window_count_gathered
+# --------------------------------------------------------------------------
+def _gathered(rng, nq, npp, d, grid):
+    pts = _coords(rng, (nq, npp, d), grid)
+    valid = (rng.random((nq, npp)) < 0.7).astype(np.int32)
+    valid[0] = 0                                         # a query with no candidates
+    pts[valid == 0] = F32_MAX
+    return pts, valid
+
+
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("npp", [1, 600])
+@pytest.mark.parametrize("grid", [False, True])
+def test_window_count_gathered_matches_jax(d, npp, grid):
+    rng = np.random.default_rng(500 + d + npp + grid)
+    nq = 9
+    lo, hi = _windows(rng, nq, d, grid)
+    pts, valid = _gathered(rng, nq, npp, d, grid)
+    args = (lo, hi, pts, valid)
+    got = ops.window_count_gathered(*map(_t, args))
+    assert got.dtype == torch.int32 and got.shape == (nq,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref.window_count_gathered_ref(*map(_t, args)).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.window_count_gathered_ref(*map(jnp.asarray, args))))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.window_count_gathered(*args, interpret=True)))
+    assert got[0] == 0
+
+
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("npp", [1, 600])
+@pytest.mark.parametrize("grid", [False, True])
+def test_gathered_dist2_matches_jax(d, npp, grid):
+    rng = np.random.default_rng(600 + d + npp + grid)
+    nq = 9
+    q = _coords(rng, (nq, d), grid)
+    pts, valid = _gathered(rng, nq, npp, d, grid)
+    args = (q, pts, valid)
+    got = ops.gathered_dist2(*map(_t, args))
+    assert got.dtype == torch.float32 and got.shape == (nq, npp)
+    got = got.numpy()
+    _assert_f32(got, ref.gathered_dist2_ref(*map(_t, args)).numpy(), exact=True)
+    _assert_f32(got, np.asarray(jref.gathered_dist2_ref(*map(jnp.asarray, args))),
+                exact=grid)
+    _assert_f32(got, np.asarray(jops.gathered_dist2(*args, interpret=True)), exact=grid)
+    assert np.all(got[valid == 0] == F32_MAX) and np.all(np.isfinite(got))
+
+
+# --------------------------------------------------------------------------
+# kernel 8: pairwise_dist2 and the knn_topk selection over it
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("nq,n_p", [(1, 1), (70, 1100)])
+@pytest.mark.parametrize("grid", [False, True])
+def test_pairwise_dist2_matches_jax(d, nq, n_p, grid):
+    rng = np.random.default_rng(700 + d + nq + n_p + grid)
+    q = _coords(rng, (nq, d), grid)
+    pts = _coords(rng, (n_p, d), grid)
+    valid = (rng.random(n_p) < 0.8).astype(np.int32)
+    args = (q, pts, valid)
+    got = ops.pairwise_dist2(*map(_t, args))
+    assert got.dtype == torch.float32 and got.shape == (nq, n_p)
+    got = got.numpy()
+    _assert_f32(got, ref.pairwise_dist2_ref(*map(_t, args)).numpy(), exact=True)
+    _assert_f32(got, np.asarray(jref.pairwise_dist2_ref(*map(jnp.asarray, args))),
+                exact=grid)
+    kern = np.asarray(jops.pairwise_dist2(q, pts, valid, interpret=True))
+    live = valid > 0
+    np.testing.assert_allclose(got[:, live], kern[:, live], rtol=1e-4, atol=1e-5)
+    assert np.all(got[:, ~live] == F32_MAX) and np.all(kern[:, ~live] == F32_MAX)
+    # the default mask is all ones
+    np.testing.assert_array_equal(
+        ops.pairwise_dist2(_t(q), _t(pts)).numpy(),
+        ref.pairwise_dist2_ref(_t(q), _t(pts), torch.ones(n_p, dtype=torch.int32)).numpy())
+
+
+@pytest.mark.parametrize("d", [2, 5])
+@pytest.mark.parametrize("k", [1, 7])
+def test_knn_topk_matches_jax_on_grid_data(d, k):
+    """Grid data has many equal distances; both sides keep the lower point
+    index first among them, so indices are equal too."""
+    rng = np.random.default_rng(800 + d + k)
+    q = _coords(rng, (20, d), grid=True)
+    pts = _coords(rng, (400, d), grid=True)
+    valid = (rng.random(400) < 0.9).astype(np.int32)
+    idx, d2 = ops.knn_topk(_t(q), _t(pts), k, valid=_t(valid))
+    ridx, rd2 = ref.knn_topk_ref(_t(q), _t(pts), _t(valid), k)
+    jidx, jd2 = jref.knn_topk_ref(jnp.asarray(q), jnp.asarray(pts), jnp.asarray(valid), k)
+    for got_i, got_d in ((idx, d2), (ridx, rd2)):
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(jidx))
+        _assert_f32(got_d.numpy(), np.asarray(jd2), exact=True)
+    assert np.all(valid[idx.numpy()] == 1)
