@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main and retrieval paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's main, first-generation and retrieval paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -20,7 +20,20 @@ Phases (any failure exits non-zero; nothing is caught):
    sets; equal f32 distance sequences).
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-5. Retrieval at d = 2 (run right after phase 3, while its points and
+   Phases 3u, 3c, 5 and 6 at d = 2 run right after phase 3, and 4u, 4c,
+   the d = 5 retrieval phase right after phase 4, on their exports, points
+   and batches.
+3u. First-generation engine (``fused=False``) on phase 3's two exports,
+   the same windows and k-NN queries, three runs each, counts zeroed
+   before and read after: ``box_hits``, ``window_mask_gathered``,
+   ``leaf_mindist`` and ``gathered_dist2`` must have launched and
+   ``pair_window_ids`` and ``pair_dist2`` must not.  Every window must
+   equal the fused batch's id set and every k-NN distance sequence the
+   fused batch's, on each export.
+3c. ``ops.window_count`` over all of phase 3's points for its 1024
+   windows (counts zeroed before, read after; ``window_count_tiles`` must
+   have launched): every count must equal the fused window batch's size.
+5. Retrieval at d = 2 (run right after phase 3c, while its points and
    index are in memory): ``RetrievalServer(points, levels=15)`` builds the
    balanced grid index on the card over phase 3's points (f32), then runs,
    each cold and warm: ``knn`` over phase 3's 1024 queries (k = 16, 16
@@ -36,16 +49,18 @@ Phases (any failure exits non-zero; nothing is caught):
    force.
 6. The same at d = 5 over phase 4's points and queries, ``levels=13``.
 7. Kernels: each kernel is called on the inputs its path gave it (the
-   largest call per kernel and bound type for ``box_hits`` and the
-   retrieval kernels, the first for the others, recorded during phases 3
-   and 5) and held bit for bit against its plain PyTorch version on the
-   card; both are timed with CUDA events, and ``pairwise_dist2`` beside
-   ``torch.cdist``.  The same comparison runs at d = 5.
+   largest call per kernel and bound type for ``box_hits``,
+   ``window_mask_gathered`` and the retrieval kernels, the first for the
+   others, recorded during phases 3, 3u, 3c and 5; ``window_count_tiles``
+   at all 1024 windows over all points) and held bit for bit against its
+   plain PyTorch version on the card; both are timed with CUDA events, and
+   ``pairwise_dist2`` beside ``torch.cdist``.  The same comparison runs at
+   d = 5.
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
-per export and of the retrieval ``knn``, ``window_count`` and
-``knn_kernel`` batches (device busy time, idle share, time by kernel
-name).  The line
+per export, fused and first-generation, and of the retrieval ``knn``,
+``window_count`` and ``knn_kernel`` batches (device busy time, idle
+share, time by kernel name).  The line
 before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the ``src/`` tree beside this file, it exits non-zero and prints no
@@ -84,10 +99,19 @@ REPLACES = {
                        "src/repro/kernels/knn_topk.py:96"),
     "gathered_dist2": ("src/repro_torch/kernels/csrc/knn_topk.cu",
                        "src/repro/kernels/knn_topk.py:59"),
+    "window_mask_gathered": ("src/repro_torch/kernels/csrc/window_filter.cu",
+                             "src/repro/kernels/window_filter.py:128"),
+    "window_count_tiles": ("src/repro_torch/kernels/csrc/window_filter.cu",
+                           "src/repro/kernels/window_filter.py:85"),
 }
 MAIN_PATH = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
 RETRIEVAL = ("partition_assign", "window_count_gathered", "pairwise_dist2",
              "gathered_dist2")
+UNFUSED = ("box_hits", "window_mask_gathered", "leaf_mindist", "gathered_dist2")
+FUSED_ONLY = ("pair_window_ids", "pair_dist2")   # must not launch unfused
+# the phase whose launch counts the kernels line reports
+PHASE = {**dict.fromkeys(MAIN_PATH, "d2"), **dict.fromkeys(RETRIEVAL, "retrieval_d2"),
+         "window_mask_gathered": "unfused_d2", "window_count_tiles": "window_count_d2"}
 OPS_NAME = {
     "box_hits": "box_hits_tiled",
     "pair_window_ids": "pair_window_ids",
@@ -97,12 +121,15 @@ OPS_NAME = {
     "window_count_gathered": "window_count_gathered",
     "pairwise_dist2": "pairwise_dist2",
     "gathered_dist2": "gathered_dist2",
+    "window_mask_gathered": "window_mask_gathered",
+    "window_count_tiles": "window_count",
 }
 # the argument whose dtype keys a recorded call (the bounds or the points)
 BOUND_ARG = {"box_hits": 0, "pair_window_ids": 2, "leaf_mindist": 1,
              "pair_dist2": 1, "partition_assign": 0, "window_count_gathered": 2,
-             "pairwise_dist2": 1, "gathered_dist2": 1}
-LARGEST = ("box_hits",) + RETRIEVAL
+             "pairwise_dist2": 1, "gathered_dist2": 1, "window_mask_gathered": 2,
+             "window_count_tiles": 2}
+LARGEST = ("box_hits", "window_mask_gathered") + RETRIEVAL
 
 
 def log(*a) -> None:
@@ -115,8 +142,9 @@ def log(*a) -> None:
 class Recorder:
     """Wraps the public wrappers of ``names`` while a path runs and keeps,
     per kernel and bound dtype, the arguments of one call: the largest for
-    ``box_hits`` and the retrieval kernels, the first call (the whole
-    batch's first round or first pair chunk) for the others."""
+    ``box_hits``, ``window_mask_gathered`` and the retrieval kernels, the
+    first call (the whole batch's first round or first pair chunk) for the
+    others."""
 
     def __init__(self, ops, names):
         self.ops = ops
@@ -254,8 +282,9 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
     with recorder:
         for comp, dv in devs.items():
             name = "bf16" if comp else "f32"
-            runs = {"window": lambda: rt.window_query_batch_torch(dv, los, his),
-                    "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, return_dists=True)}
+            runs = {"window": lambda: rt.window_query_batch_torch(dv, los, his, fused=True),
+                    "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, fused=True,
+                                                            return_dists=True)}
             for kind, run in runs.items():
                 res, rec = timed_runs(run, torch, launches, runs=3)
                 batches[(kind, name)] = res
@@ -306,15 +335,114 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
     if profile:
         out["profile"] = {
             name: profile_batches({
-                "window": lambda: rt.window_query_batch_torch(dv, los, his),
-                "knn": lambda: rt.knn_query_batch_torch(dv, qs, k)}, torch)
+                "window": lambda: rt.window_query_batch_torch(dv, los, his, fused=True),
+                "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, fused=True)}, torch)
             for name, dv in (("f32", devs[False]), ("bf16", devs[True]))
         }
         log(f"[{tag}] profile: {out['profile']}")
     log(f"[{tag}] 32 windows and 16 k-NN queries per export equal the brute force")
-    inputs = {"index": idx, "los": los, "his": his, "qs": qs,
+    inputs = {"index": idx, "los": los, "his": his, "qs": qs, "devs": devs,
+              "batches": batches,
               "window_counts": np.array([len(r) for r in batches[("window", "f32")]])}
     return out, recorder.calls, inputs
+
+
+# --------------------------------------------------------------------------
+# the first-generation engine and ops.window_count
+# --------------------------------------------------------------------------
+def unfused_path(tag, inputs, k, torch, rt, launches, profile=False):
+    """Run phase 3's (or 4's) window and k-NN batches with ``fused=False``
+    on both exports, with the launch counts zeroed before and read after,
+    and hold every answer against the fused batches.  Returns the
+    measurements and the recorded ``window_mask_gathered`` calls."""
+    from repro_torch.kernels import ops
+
+    los, his, qs = inputs["los"], inputs["his"], inputs["qs"]
+    fused = inputs["batches"]
+    out = {}
+    recorder = Recorder(ops, ("window_mask_gathered",))
+    launches.reset()
+    batches = {}
+    with recorder:
+        for comp, dv in inputs["devs"].items():
+            name = "bf16" if comp else "f32"
+            runs = {"window": lambda: rt.window_query_batch_torch(dv, los, his, fused=False),
+                    "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, fused=False,
+                                                            return_dists=True)}
+            for kind, run in runs.items():
+                res, rec = timed_runs(run, torch, launches, runs=3)
+                batches[(kind, name)] = res
+                if kind == "window":
+                    rec["chunks"] = rec["launches"].get("window_mask_gathered", 0)
+                    rec["ids"] = int(sum(len(r) for r in res))
+                else:
+                    rec["rounds"] = rec["launches"].get("leaf_mindist", 0)
+                out[f"{kind}_{name}"] = rec
+                log(f"[{tag}] unfused {kind} batch ({name} export): {rec}")
+    counts = launches.counts()
+    out["launches"] = counts
+    missing = [kk for kk in UNFUSED if counts[kk] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] kernels not launched on the unfused path: {missing}")
+    fused_launched = [kk for kk in FUSED_ONLY if counts[kk]]
+    if fused_launched:
+        raise AssertionError(f"[{tag}] fused kernels launched with fused=False: "
+                             f"{fused_launched}")
+    for name in ("f32", "bf16"):
+        got_w, want_w = batches[("window", name)], fused[("window", name)]
+        if len(got_w) != len(want_w):
+            raise AssertionError(f"[{tag}] unfused window batch lost windows ({name})")
+        for i, (a, b) in enumerate(zip(got_w, want_w)):
+            if not np.array_equal(np.sort(a), np.sort(b)):
+                raise AssertionError(f"[{tag}] unfused window {i} ({name}) differs "
+                                     f"from the fused batch")
+        got_k, want_k = batches[("knn", name)][1], fused[("knn", name)][1]
+        if len(got_k) != len(want_k):
+            raise AssertionError(f"[{tag}] unfused k-NN batch lost queries ({name})")
+        for i, (a, b) in enumerate(zip(got_k, want_k)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"[{tag}] unfused k-NN query {i} ({name}) differs "
+                                     f"from the fused batch: {a} vs {b}")
+    log(f"[{tag}] unfused launches {counts}; every window and k-NN distance sequence "
+        f"of both exports equals the fused batch's")
+    if profile:
+        out["profile"] = {
+            name: profile_batches({
+                "window": lambda: rt.window_query_batch_torch(dv, los, his, fused=False),
+                "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, fused=False)}, torch)
+            for name, dv in (("f32", inputs["devs"][False]), ("bf16", inputs["devs"][True]))
+        }
+        log(f"[{tag}] unfused profile: {out['profile']}")
+    return out, recorder.calls
+
+
+def window_count_path(tag, pts, inputs, torch, launches, device="cuda"):
+    """``ops.window_count`` of phase 3's (or 4's) windows over all points,
+    with the launch counts zeroed before and read after; every count must
+    equal the fused window batch's size.  Returns the measurements and
+    the recorded ``window_count_tiles`` call."""
+    from repro_torch.kernels import ops
+
+    pts_dev = torch.from_numpy(pts.astype(np.float32)).to(device)
+    lo = torch.from_numpy(inputs["los"].astype(np.float32)).to(device)
+    hi = torch.from_numpy(inputs["his"].astype(np.float32)).to(device)
+    recorder = Recorder(ops, ("window_count_tiles",))
+    launches.reset()
+    with recorder:
+        counts, out = timed_runs(lambda: ops.window_count(lo, hi, pts_dev).cpu().numpy(),
+                                 torch, launches)
+    out["launches"] = launched = launches.counts()
+    out.update(windows=len(lo), points=len(pts_dev))
+    if launched["window_count_tiles"] == 0:
+        raise AssertionError(f"[{tag}] window_count_tiles not launched")
+    want = inputs["window_counts"]
+    if counts.shape != want.shape or not np.array_equal(counts, want):
+        bad = np.flatnonzero(counts != want)
+        raise AssertionError(f"[{tag}] ops.window_count differs from the fused window "
+                             f"batch at {len(bad)} windows, first {bad[:5]}")
+    log(f"[{tag}] ops.window_count: {out}; all {len(counts)} counts over "
+        f"{len(pts_dev)} points equal the fused window batch's sizes")
+    return out, recorder.calls
 
 
 # --------------------------------------------------------------------------
@@ -535,6 +663,19 @@ def byte_and_op_counts(name, args, kw, out, torch):
         nq, npp, d = pts.shape
         nv = int((valid > 0).sum())
         return 2 * nq * d * 4 + nq * npp * 4 + nv * d * 4 + nq * 4, nv * 2 * d
+    if name == "window_mask_gathered":
+        lo, hi, pts, valid = args
+        nq, npp, d = pts.shape
+        nv = int((valid > 0).sum())
+        return 2 * nq * d * 4 + nq * npp * 4 + nv * d * 4 + nq * npp * 4, nv * 2 * d
+    if name == "window_count_tiles":
+        lo, hi, pts, *rest = args
+        valid = rest[0] if rest else None
+        nq, d = lo.shape
+        n_p = pts.shape[0]
+        nv = n_p if valid is None else int((valid > 0).sum())
+        vb = 0 if valid is None else n_p * 4
+        return 2 * nq * d * 4 + nv * d * 4 + vb + nq * 4, nq * nv * 2 * d
     if name == "gathered_dist2":
         q, pts, valid = args
         nq, npp, d = pts.shape
@@ -583,7 +724,9 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
               "partition_assign": partition_assign.partition_assign,
               "window_count_gathered": window_filter.window_count_gathered,
               "pairwise_dist2": knn_topk.pairwise_dist2,
-              "gathered_dist2": knn_topk.gathered_dist2}
+              "gathered_dist2": knn_topk.gathered_dist2,
+              "window_mask_gathered": window_filter.window_mask_gathered,
+              "window_count_tiles": window_filter.window_count_tiles}
     plain = {"box_hits": ref.box_hits_tiled_ref,
              "pair_window_ids": ref.pair_window_ids_ref,
              "leaf_mindist": ref.leaf_mindist_ref,
@@ -591,7 +734,9 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
              "partition_assign": ref.partition_assign_ref,
              "window_count_gathered": ref.window_count_gathered_ref,
              "pairwise_dist2": ref.pairwise_dist2_ref,
-             "gathered_dist2": ref.gathered_dist2_ref}
+             "gathered_dist2": ref.gathered_dist2_ref,
+             "window_mask_gathered": ref.window_mask_gathered_ref,
+             "window_count_tiles": ref.window_count_ref}
     # the nearest single PyTorch call, timed beside the kernel and used
     # nowhere in the port (unsquared and unmasked)
     library = {"pairwise_dist2": lambda q, p, valid: torch.cdist(q, p)}
@@ -606,7 +751,8 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
         if not all(bitwise_equal(g, w, torch) for g, w in zip(got_t, want_t)):
             raise AssertionError(f"{name} ({bdtype}) differs from its plain version: "
                                  f"max abs err {err}")
-        rec = {"shapes": [list(a.shape) for a in args], "max_abs_err": err, **kw}
+        rec = {"shapes": [None if a is None else list(a.shape) for a in args],
+               "max_abs_err": err, **kw}
         if timed:
             b, ops = byte_and_op_counts(name, args, kw, got_t, torch)
             bytes_ms = b / HBM_BYTES_PER_S * 1e3
@@ -667,6 +813,10 @@ def main(argv=None) -> int:
     pts = osm_like(10_000_000, seed=7)
     results["d2"], calls2, inputs = main_path("d=2", pts, 11, 1024, 1024, 16, torch,
                                               rt, launches, profile=args.profile)
+    results["unfused_d2"], ucalls2 = unfused_path("d=2", inputs, 16, torch, rt, launches,
+                                                  profile=args.profile)
+    results["window_count_d2"], wcalls2 = window_count_path("d=2", pts, inputs, torch,
+                                                            launches)
     results["retrieval_d2"], rcalls2 = retrieval_path("retrieval d=2", pts, inputs, 15,
                                                       16, torch, rt, launches,
                                                       profile=args.profile)
@@ -675,21 +825,24 @@ def main(argv=None) -> int:
     results["d5"], calls5, inputs = main_path("d=5", pts5, 11, 1024, 1024, 16, torch,
                                               rt, launches, half_width=0.05,
                                               at_points=True, profile=args.profile)
+    results["unfused_d5"], ucalls5 = unfused_path("d=5", inputs, 16, torch, rt, launches,
+                                                  profile=args.profile)
+    results["window_count_d5"], wcalls5 = window_count_path("d=5", pts5, inputs, torch,
+                                                            launches)
     results["retrieval_d5"], rcalls5 = retrieval_path("retrieval d=5", pts5, inputs, 13,
                                                       16, torch, rt, launches,
                                                       profile=args.profile)
     del pts5, inputs
 
-    k2 = kernel_phase({**calls2, **rcalls2}, torch, timed=True)
-    kernel_phase({**calls5, **rcalls5}, torch, timed=False)
+    k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
+    kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():
         f32 = k2[(name, "float32")]
-        phase = "d2" if name in MAIN_PATH else "retrieval_d2"
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": results[phase]["launches"][name],
+            "launches": results[PHASE[name]]["launches"][name],
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],

@@ -1,11 +1,12 @@
 """PyTorch and CUDA port of the FMBI/AMBI reproduction (``repro``).
 
 It carries the main path: the FMBI bulk load on the host, the device
-export (``DeviceTable``) and the fused window and k-NN batches; and the
-retrieval path: the balanced ``GridIndex`` built on the device, its
-routing, window counts and k-NN, served by ``RetrievalServer``.  Eight
-hand-written Hopper kernels carry both.  It imports ``torch`` and numpy
-only.
+export (``DeviceTable``) and the window and k-NN batches (fused, or the
+first generation with ``fused=False``); the brute-force count
+``kernels.ops.window_count``; and the retrieval path: the balanced
+``GridIndex`` built on the device, its routing, window counts and k-NN,
+served by ``RetrievalServer``.  Ten hand-written Hopper kernels carry
+them.  It imports ``torch`` and numpy only.
 """
 from .core import (
     DeviceTable,

@@ -1,11 +1,15 @@
-"""Device query engine of the PyTorch port: fused window and k-NN batches.
+"""Device query engine of the PyTorch port: window and k-NN batches.
 
-The port of the JAX package's fused engine (``repro/core/queries_jax.py``:
-``_window_batch_fused`` and ``_knn_batch_fused`` with the functions under
-them).  A ``NodeTable`` is exported once into fixed-shape tensors on the
-card (:class:`DeviceTable`); each query batch then runs on the device with
-a few scalar syncs, and four hand-written CUDA kernels carry the geometry
-(``kernels/ops.py``):
+The port of the JAX package's device engine (``repro/core/queries_jax.py``):
+the fused engine (``_window_batch_fused`` and ``_knn_batch_fused`` with the
+functions under them) and the first-generation one (``fused=False``).  A
+``NodeTable`` is exported once into fixed-shape tensors on the card
+(:class:`DeviceTable`); each query batch then runs on the device, and
+hand-written CUDA kernels carry the geometry (``kernels/ops.py``).  The
+fused engine is the default; ``fused=False``, or ``REPRO_FUSED=0`` in the
+environment, selects the first-generation one.
+
+Fused engine (a few scalar syncs per batch):
 
   * **Window batch.**  A level-synchronous frontier descent tests each
     level block's boxes against the whole batch (``box_hits_tiled``, one
@@ -28,6 +32,21 @@ a few scalar syncs, and four hand-written CUDA kernels carry the geometry
     gathered and scattered back on the device; the host syncs one scalar
     (the failure count) per round.
 
+First-generation engine (packs on the host, reads only the f32 bounds):
+
+  * **Window batch.**  ``frontier_leaf_hits`` (``box_hits_tiled`` per
+    level block) gives the (Q, L + U) hit mask, which moves to the host;
+    ``np.nonzero`` lists the (window, leaf) pairs, which stream in
+    power-of-two buckets of at most ``PAIR_CHUNK`` through
+    ``_pair_collect`` (the leaf blocks gathered on the device and tested
+    by ``window_mask_gathered``); each (P, S) mask moves to the host,
+    where the ids are gathered from ``DeviceTable.host_ids``.
+  * **k-NN batch.**  ``_knn_core`` ranks the leaves by f32 box mindist
+    (``leaf_mindist_tiled``), gathers the C closest leaf blocks and scans
+    them with ``gathered_dist2``, then merges and certifies as the fused
+    round does.  The host loop reruns the uncertified queries with a
+    doubled budget, moving each round's results to the host.
+
 The device of the tensors picks the arithmetic: on the card every kernel
 launches (or raises), on the CPU the same function runs as its plain
 version.  Entry points export to ``cuda`` unless the caller passes
@@ -41,6 +60,8 @@ among exact ties.  Result order within a window set is unspecified.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
 import torch
@@ -57,6 +78,16 @@ PAIR_CHUNK = 16384
 
 def _pow2(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
+
+
+def _fused_default() -> bool:
+    """Resolve the ``fused`` flag: the ``REPRO_FUSED`` env var (1/0) wins
+    (0 pins the first-generation host-packing path for A/B runs), else the
+    fused engine is the default."""
+    env = os.environ.get("REPRO_FUSED")
+    if env is not None and env != "":
+        return env not in ("0", "false", "False")
+    return True
 
 
 def resolve_device(device=None) -> torch.device:
@@ -147,6 +178,12 @@ class DeviceTable:
     def dim(self) -> int:
         return self.leaf_pts.shape[2]
 
+    @functools.cached_property
+    def host_ids(self) -> np.ndarray:
+        """Host copy of ``leaf_ids``, made at first use and kept: the
+        first-generation window path packs its ids on the host."""
+        return self.leaf_ids.cpu().numpy()
+
     def live_points(self) -> int:
         """Live point count (the sum of the leaf fills)."""
         return self.n_points
@@ -217,20 +254,22 @@ class DeviceTable:
 # --------------------------------------------------------------------------
 # window batch
 # --------------------------------------------------------------------------
-def _frontier_count(dev: DeviceTable, qlo: torch.Tensor, qhi: torch.Tensor):
-    """(Q, L + U) bool hit mask of leaf and cold slots, plus the number of
-    (window, leaf) pairs as a device scalar.
+def frontier_leaf_hits(dev: DeviceTable, qlo: torch.Tensor,
+                       qhi: torch.Tensor, *, compressed: bool = False):
+    """(Q, L + U) bool mask of the leaf slots, and on a partial export the
+    cold (unrefined) slots, whose box intersects each window.
 
-    One ``box_hits_tiled`` launch per level block, against the bf16
-    bounds of a compressed export (a superset of the f32 hits, which the
-    pair scan re-checks) or the f32 bounds.  A row survives when its box
-    hits and its parent survived."""
+    One ``box_hits_tiled`` launch per level block, against the f32 bounds,
+    or with ``compressed=True`` against the bf16 bounds of a compressed
+    export (a superset of the f32 hits, which the fused pair scan
+    re-checks).  A row survives when its box hits and its parent
+    survived."""
     n_slots = dev.n_leaves + dev.n_cold
     slot_hit = torch.zeros((n_slots, qlo.shape[0]), dtype=torch.bool,
                            device=qlo.device)
     prev = None
     for i, (lo, hi, parent) in enumerate(dev.levels):
-        if dev.levels_c is not None:
+        if compressed:
             lo, hi = dev.levels_c[i]
         hit = kops.box_hits_tiled(lo, hi, qlo, qhi) > 0   # (n_level, Q)
         if prev is not None:
@@ -238,7 +277,14 @@ def _frontier_count(dev: DeviceTable, qlo: torch.Tensor, qhi: torch.Tensor):
         pos, slot = dev.terminals[i]
         slot_hit[slot] = hit[pos]   # distinct slots: a plain assignment
         prev = hit
-    hits = slot_hit.t().contiguous()
+    return slot_hit.t().contiguous()
+
+
+def _frontier_count(dev: DeviceTable, qlo: torch.Tensor, qhi: torch.Tensor):
+    """The fused frontier: the hit mask over the export's cheapest bounds
+    (bf16 where compressed), plus the number of (window, leaf) pairs as a
+    device scalar."""
+    hits = frontier_leaf_hits(dev, qlo, qhi, compressed=dev.compressed)
     return hits, hits[:, : dev.n_leaves].sum()
 
 
@@ -285,15 +331,67 @@ def _fused_id_pack(ids_or: torch.Tensor, total: int) -> torch.Tensor:
     return packed[:total]
 
 
+def _pair_collect(dev: DeviceTable, qlo, qhi, q_idx, leaf_idx, pair_valid):
+    """Scan one bucket of (window, leaf) pairs: gather each pair's leaf
+    block and test containment against its window.  Returns the (P, S)
+    bool mask of the slots that are live and inside."""
+    s = dev.leaf_size
+    li = leaf_idx.long()
+    qi = q_idx.long()
+    pts = dev.leaf_pts[li]                     # (P, S, d)
+    slot = torch.arange(s, dtype=torch.int32, device=pts.device)
+    valid = (slot[None, :] < dev.leaf_counts[li][:, None]) & pair_valid[:, None]
+    return kops.window_mask_gathered(qlo[qi], qhi[qi], pts,
+                                     valid.to(torch.int32)) > 0
+
+
+def _window_batch_unfused(dev: DeviceTable, qlo, qhi, return_cold: bool):
+    """The first-generation window batch: the f32 frontier mask and each
+    bucket's containment mask move to the host, which packs the ids."""
+    q0 = qlo.shape[0]
+    hits = frontier_leaf_hits(dev, qlo, qhi).cpu().numpy()
+    inter, cold = hits[:, : dev.n_leaves], hits[:, dev.n_leaves:]
+    q_idx, leaf_idx = np.nonzero(inter)   # row-major: grouped by window
+    p0 = len(q_idx)
+    if p0 == 0:
+        empty = [np.zeros(0, dtype=np.int64) for _ in range(q0)]
+        return (empty, cold) if return_cold else empty
+    parts, pair_counts = [], []
+    for a in range(0, p0, PAIR_CHUNK):
+        b = min(a + PAIR_CHUNK, p0)
+        p = _pow2(b - a)
+        qi = np.zeros(p, dtype=np.int32)
+        li = np.zeros(p, dtype=np.int32)
+        qi[: b - a] = q_idx[a:b]
+        li[: b - a] = leaf_idx[a:b]
+        pv = np.arange(p) < (b - a)
+        inside = _pair_collect(
+            dev, qlo, qhi, *(torch.from_numpy(x).to(dev.device) for x in (qi, li, pv))
+        ).cpu().numpy()
+        ids = dev.host_ids[li]                # (P, S) host gather
+        parts.append(ids[inside].astype(np.int64))
+        pair_counts.append(inside.sum(axis=1)[: b - a])
+    all_ids = np.concatenate(parts)
+    per_pair = np.concatenate(pair_counts)
+    per_query = np.bincount(q_idx, weights=per_pair, minlength=q0)
+    res = np.split(all_ids, np.cumsum(per_query.astype(np.int64))[:-1])
+    return (res, cold) if return_cold else res
+
+
 def window_query_batch_torch(dev: DeviceTable, los, his, *,
+                             fused: bool | None = None,
                              return_cold: bool = False):
     """Batched window query: per-window arrays of dataset row ids.
 
     Ids equal (as sets) those of the NumPy engine and the JAX engine for
-    float32-representable inputs.  On a partial export the ids cover only
-    the refined leaves; ``return_cold=True`` also returns the (Q, U) mask
-    of the unrefined rows each window reached (those windows must be
-    answered on the host)."""
+    float32-representable inputs, on either engine: ``fused`` (default
+    on; ``REPRO_FUSED=0`` pins the first-generation path) packs on the
+    device, ``fused=False`` on the host.  On a partial export the ids
+    cover only the refined leaves; ``return_cold=True`` also returns the
+    (Q, U) mask of the unrefined rows each window reached (those windows
+    must be answered on the host)."""
+    if fused is None:
+        fused = _fused_default()
     los = np.atleast_2d(np.asarray(los, dtype=np.float32))
     his = np.atleast_2d(np.asarray(his, dtype=np.float32))
     if los.shape != his.shape or los.ndim != 2 or los.shape[1] != dev.dim:
@@ -302,6 +400,8 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
     q0 = los.shape[0]
     qlo = torch.from_numpy(los).to(dev.device)
     qhi = torch.from_numpy(his).to(dev.device)
+    if not fused:
+        return _window_batch_unfused(dev, qlo, qhi, return_cold)
     hits, n_pairs = _frontier_count(dev, qlo, qhi)
     p0 = int(n_pairs)                                     # host sync
     cold = hits[:, dev.n_leaves:].cpu().numpy() if return_cold else None
@@ -327,14 +427,61 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
 # --------------------------------------------------------------------------
 # k-NN batch
 # --------------------------------------------------------------------------
+def _knn_merge(dev: DeviceTable, mind, cand, d2, k: int):
+    """Top-k of a round's (Q, C, S) candidate distances ``d2`` over the
+    leaves ``cand`` ranked by ``mind`` (Q, L), and the certificate.
+
+    Returns ``(ids, d2k, exact)`` of width ``min(k, C*S)``: ``exact``
+    holds where the k-th distance does not exceed the mindist of the
+    closest unscanned leaf.  ``mind`` is overwritten."""
+    q, c, s = d2.shape
+    kk = min(k, c * s)
+    kl = min(kk, s)
+    # two-level merge: top-k within each leaf block, then across the C
+    # block winners (same result set, smaller sort fronts)
+    d2l, til = torch.topk(d2, kl, dim=2, largest=False)        # (Q, C, kl)
+    d2k, tim = torch.topk(d2l.reshape(q, c * kl), kk, dim=1, largest=False)
+    ti = torch.gather(til.reshape(q, c * kl), 1, tim) + (tim // kl) * s
+    leaf_sel = torch.gather(cand, 1, ti // s)
+    ids = dev.leaf_ids[leaf_sel, ti % s]
+    if c >= dev.n_leaves:
+        exact = torch.ones(q, dtype=torch.bool, device=d2.device)
+    elif kk < k:  # fewer candidate slots than k: only a full scan certifies
+        exact = torch.zeros(q, dtype=torch.bool, device=d2.device)
+    else:
+        unscanned = mind.scatter_(1, cand, float("inf")).min(dim=1).values
+        exact = d2k[:, -1] <= unscanned
+    return ids, d2k, exact
+
+
 def _knn_core(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
-    """One k-NN round over each query's ``c`` closest leaves.
+    """One first-generation k-NN round over each query's ``c`` closest
+    leaves by f32 box mindist: the C leaf blocks are gathered into
+    (Q, C*S, d) and scanned by ``gathered_dist2``.
+
+    Returns ``(ids, d2k, exact)`` of width ``min(k, C*S)`` (see
+    :func:`_knn_merge`).  It reads only ``leaf_pts``, ``leaf_ids``,
+    ``leaf_counts`` and the f32 ``leaf_lo``/``leaf_hi`` of ``dev``."""
+    q = qs.shape[0]
+    n_l, s, d = dev.leaf_pts.shape
+    c = min(c, n_l)
+    mind = kops.leaf_mindist_tiled(qs, dev.leaf_lo, dev.leaf_hi)  # (Q, L)
+    cand = torch.topk(mind, c, dim=1, largest=False).indices      # (Q, C)
+    slot = torch.arange(s, dtype=torch.int32, device=qs.device)
+    valid = slot[None, None, :] < dev.leaf_counts[cand][:, :, None]
+    d2 = kops.gathered_dist2(
+        qs, dev.leaf_pts[cand].reshape(q, c * s, d),
+        valid.reshape(q, c * s).to(torch.int32),
+    ).reshape(q, c, s)
+    return _knn_merge(dev, mind, cand, d2, k)
+
+
+def _knn_core_fused(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
+    """One fused k-NN round over each query's ``c`` closest leaves.
 
     Returns ``(ids, d2k, exact)`` padded to the budget-independent width
-    ``min(k, L*S)``: ``exact`` holds where the k-th distance does not
-    exceed the mindist of the closest unscanned leaf.  Ranking by the
-    compressed bounds only lowers mindists, so the certificate stays
-    conservative."""
+    ``min(k, L*S)`` (see :func:`_knn_merge`).  Ranking by the compressed
+    bounds only lowers mindists, so the certificate stays conservative."""
     q = qs.shape[0]
     n_l, s, _ = dev.leaf_pts.shape
     c = min(c, n_l)
@@ -349,23 +496,8 @@ def _knn_core(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
         qs, dev.leaf_pts, dev.leaf_counts, q_rep.repeat_interleave(c),
         cand.reshape(-1).to(torch.int32),
     ).reshape(q, c, s)
-    kk = min(k, c * s)
-    kl = min(kk, s)
-    # two-level merge: top-k within each leaf block, then across the C
-    # block winners (same result set, smaller sort fronts)
-    d2l, til = torch.topk(d2, kl, dim=2, largest=False)        # (Q, C, kl)
-    d2k, tim = torch.topk(d2l.reshape(q, c * kl), kk, dim=1, largest=False)
-    ti = torch.gather(til.reshape(q, c * kl), 1, tim) + (tim // kl) * s
-    leaf_sel = torch.gather(cand, 1, ti // s)
-    ids = dev.leaf_ids[leaf_sel, ti % s]
-    if c >= n_l:
-        exact = torch.ones(q, dtype=torch.bool, device=qs.device)
-    elif kk < k:  # fewer candidate slots than k: only a full scan certifies
-        exact = torch.zeros(q, dtype=torch.bool, device=qs.device)
-    else:
-        # in place: ``mind`` is not read again
-        unscanned = mind.scatter_(1, cand, float("inf")).min(dim=1).values
-        exact = d2k[:, -1] <= unscanned
+    ids, d2k, exact = _knn_merge(dev, mind, cand, d2, k)
+    kk = d2k.shape[1]
     kf = min(k, n_l * s)
     if kf > kk:
         ids = torch.cat([ids, ids.new_full((q, kf - kk), -1)], dim=1)
@@ -395,20 +527,24 @@ def _knn_merge_round(bufs, b0: int, idx, valid, new) -> torch.Tensor:
     return (~bufs[2][:b0]).sum()
 
 
+def _knn_budget(dev: DeviceTable, k: int, n_candidate_leaves: int | None):
+    """The first round's candidate-leaf budget and its cap (powers of
+    two)."""
+    cap = _pow2(dev.n_leaves)
+    if n_candidate_leaves is None:
+        return min(_pow2(max(8, -(-2 * k) // dev.leaf_size)), cap), cap
+    return min(_pow2(max(n_candidate_leaves, 1)), cap), cap
+
+
 def _knn_batch(dev: DeviceTable, qs: np.ndarray, k: int,
                n_candidate_leaves: int | None, max_rounds: int | None):
     """Budget escalation on the device: returns the (b0, min(k, L*S)) id
     and distance buffers, the exact mask and whether the last round
     scanned every leaf."""
     b0 = qs.shape[0]
-    s = dev.leaf_size
-    cap = _pow2(dev.n_leaves)
-    if n_candidate_leaves is None:
-        c = min(_pow2(max(8, -(-2 * k) // s)), cap)
-    else:
-        c = min(_pow2(max(n_candidate_leaves, 1)), cap)
+    c, cap = _knn_budget(dev, k, n_candidate_leaves)
     qt = torch.from_numpy(qs).to(dev.device)
-    ids, d2k, exact = _knn_core(dev, qt, k, c)
+    ids, d2k, exact = _knn_core_fused(dev, qt, k, c)
     # one sentinel row past the batch absorbs the padding slots of merges
     bufs = tuple(torch.cat([t, t[:1]]) for t in (ids, d2k, exact))
     full_scan = c >= dev.n_leaves
@@ -417,14 +553,52 @@ def _knn_batch(dev: DeviceTable, qs: np.ndarray, k: int,
     while n_fail and (max_rounds is None or rounds < max_rounds):
         c = min(c * 2, cap)
         idx, valid, qsel = _knn_pending(qt, bufs[2][:b0], _pow2(n_fail))
-        nfail = _knn_merge_round(bufs, b0, idx, valid, _knn_core(dev, qsel, k, c))
+        nfail = _knn_merge_round(bufs, b0, idx, valid,
+                                 _knn_core_fused(dev, qsel, k, c))
         full_scan = c >= dev.n_leaves
         n_fail = int(nfail) if not full_scan else 0       # host sync
         rounds += 1
     return bufs[0][:b0], bufs[1][:b0], bufs[2][:b0], full_scan
 
 
+def _knn_batch_unfused(dev: DeviceTable, qs: np.ndarray, k: int,
+                       n_candidate_leaves: int | None,
+                       max_rounds: int | None):
+    """The first-generation host loop: each round's results move to the
+    host; the uncertified queries rerun with a doubled budget until every
+    certificate holds, the whole leaf table is scanned, or ``max_rounds``
+    flushes the rest as inexact.  Returns per-query id and distance
+    arrays of length at most ``min(k, live points)`` and the exact
+    mask."""
+    q0 = qs.shape[0]
+    c, cap = _knn_budget(dev, k, n_candidate_leaves)
+    m = min(k, dev.live_points())
+    results: list = [None] * q0
+    dists: list = [None] * q0
+    exact_mask = np.ones(q0, dtype=bool)
+    pending = np.arange(q0)
+    rounds = 0
+    while len(pending):
+        qt = torch.from_numpy(qs[pending]).to(dev.device)
+        ids, d2k, exact = (t.cpu().numpy() for t in _knn_core(dev, qt, k, c))
+        done = exact if c < dev.n_leaves else np.ones(len(pending), dtype=bool)
+        flush = done
+        if max_rounds is not None and rounds >= max_rounds:
+            # budget cap: the still-failing queries get their best-effort
+            # answers, marked inexact
+            flush = np.ones(len(pending), dtype=bool)
+        for j in np.flatnonzero(flush):
+            results[pending[j]] = ids[j, :m].astype(np.int64)
+            dists[pending[j]] = d2k[j, :m]
+            exact_mask[pending[j]] = bool(done[j])
+        pending = pending[~flush]
+        c = min(c * 2, cap)
+        rounds += 1
+    return results, dists, exact_mask
+
+
 def knn_query_batch_torch(dev: DeviceTable, qs, k: int, *,
+                          fused: bool | None = None,
                           n_candidate_leaves: int | None = None,
                           return_dists: bool = False,
                           max_rounds: int | None = None,
@@ -438,7 +612,12 @@ def knn_query_batch_torch(dev: DeviceTable, qs, k: int, *,
     (among exact ties the chosen ids may differ from another engine's).
     ``return_dists`` adds the float32 squared distances; ``max_rounds``
     caps the escalation rounds after the first, and ``return_exact`` adds
-    the per-query mask of answers the certificate covers."""
+    the per-query mask of answers the certificate covers.  ``fused``
+    (default on; ``REPRO_FUSED=0`` pins the first-generation path)
+    escalates on the device, ``fused=False`` in a host loop; both return
+    the same distances."""
+    if fused is None:
+        fused = _fused_default()
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if max_rounds is not None and max_rounds < 0:
@@ -448,24 +627,29 @@ def knn_query_batch_torch(dev: DeviceTable, qs, k: int, *,
         raise ValueError(f"queries must be (Q, {dev.dim}), got {qs.shape}")
     q0 = qs.shape[0]
     if dev.n_leaves == 0:  # partial export with nothing refined yet
-        out = ([np.zeros(0, dtype=np.int64) for _ in range(q0)],)
-        if return_dists:
-            out += ([np.zeros(0, dtype=np.float32) for _ in range(q0)],)
-        if return_exact:
-            out += (np.ones(q0, dtype=bool),)
-        return out if len(out) > 1 else out[0]
-    ids_b, d2_b, exact_b, full_scan = _knn_batch(
-        dev, qs, k, n_candidate_leaves, max_rounds
-    )
-    m = min(k, dev.live_points())
-    ids = ids_b[:, :m].cpu().numpy()
-    out = ([ids[j].astype(np.int64) for j in range(q0)],)
-    if return_dists:
-        d2k = d2_b[:, :m].cpu().numpy()
-        out += ([d2k[j] for j in range(q0)],)
-    if return_exact:
-        if full_scan:  # whole leaf table scanned: vacuously exact
-            out += (np.ones(q0, dtype=bool),)
+        ids = [np.zeros(0, dtype=np.int64) for _ in range(q0)]
+        d2 = [np.zeros(0, dtype=np.float32) for _ in range(q0)]
+        exact = np.ones(q0, dtype=bool)
+    elif not fused:
+        ids, d2, exact = _knn_batch_unfused(dev, qs, k, n_candidate_leaves,
+                                            max_rounds)
+    else:
+        ids_b, d2_b, exact_b, full_scan = _knn_batch(
+            dev, qs, k, n_candidate_leaves, max_rounds
+        )
+        m = min(k, dev.live_points())
+        ids_h = ids_b[:, :m].cpu().numpy()
+        ids = [ids_h[j].astype(np.int64) for j in range(q0)]
+        d2 = list(d2_b[:, :m].cpu().numpy()) if return_dists else None
+        if not return_exact:
+            exact = None
+        elif full_scan:  # whole leaf table scanned: vacuously exact
+            exact = np.ones(q0, dtype=bool)
         else:
-            out += (exact_b.cpu().numpy(),)
+            exact = exact_b.cpu().numpy()
+    out = (ids,)
+    if return_dists:
+        out += (d2,)
+    if return_exact:
+        out += (exact,)
     return out if len(out) > 1 else out[0]

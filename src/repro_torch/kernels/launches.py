@@ -12,7 +12,7 @@ import torch
 
 KERNELS = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2",
            "partition_assign", "window_count_gathered", "pairwise_dist2",
-           "gathered_dist2")
+           "gathered_dist2", "window_mask_gathered", "window_count_tiles")
 MAX_D = 64      # the CUDA sources stage at most this many dimensions
 INT32_MAX = 2**31 - 1
 

@@ -102,3 +102,19 @@ def gathered_dist2(queries, points, valid):
     if _route(queries) == "cpu":
         return ref.gathered_dist2_ref(queries, points, valid)
     return _knn.gathered_dist2(queries, points, valid)
+
+
+def window_mask_gathered(lo, hi, points, valid):
+    """(nq, npp) int32 containment mask over per-query gathered (nq, npp, d)
+    points with their own validity mask."""
+    if _route(lo) == "cpu":
+        return ref.window_mask_gathered_ref(lo, hi, points, valid)
+    return _wf.window_mask_gathered(lo, hi, points, valid)
+
+
+def window_count(lo, hi, points, valid=None):
+    """(nq,) int32 in-window counts over one shared (np, d) point table;
+    ``valid`` defaults to every point."""
+    if _route(lo) == "cpu":
+        return ref.window_count_ref(lo, hi, points, valid)
+    return _wf.window_count_tiles(lo, hi, points, valid)

@@ -148,6 +148,43 @@ def window_count_gathered_ref(lo, hi, points, valid):
     return inside.sum(dim=1, dtype=torch.int32)
 
 
+def window_mask_gathered_ref(lo, hi, points, valid):
+    """(nq, npp) int32 mask: 1 where the slot is valid (``valid > 0``) and
+    its point lies in its query's window (``p >= lo & p <= hi`` in every
+    dimension, so a NaN coordinate is never inside)."""
+    inside = valid > 0
+    for k in range(points.shape[2]):
+        pk = points[:, :, k]
+        inside = inside & (pk >= lo[:, k, None]) & (pk <= hi[:, k, None])
+    return inside.to(torch.int32)
+
+
+# ceiling on the bytes of one (nq, chunk) plane of ``window_count_ref``
+WINDOW_COUNT_PLANE_BYTES = 256 * 1024 * 1024
+
+
+def window_count_ref(lo, hi, points, valid=None):
+    """(nq,) int32 in-window counts over one shared ``(np, d)`` point
+    table; points with ``valid <= 0`` excluded (``valid=None``: every
+    point counts).  The point axis runs in chunks so that one (nq, chunk)
+    plane stays within ``WINDOW_COUNT_PLANE_BYTES``; integer sums are
+    exact in any order."""
+    nq, n_p = lo.shape[0], points.shape[0]
+    out = torch.zeros(nq, dtype=torch.int32, device=lo.device)
+    chunk = max(WINDOW_COUNT_PLANE_BYTES // max(nq, 1), 1)
+    for s in range(0, n_p, chunk):
+        p = points[s:s + chunk]
+        if valid is None:
+            inside = torch.ones((1, p.shape[0]), dtype=torch.bool, device=p.device)
+        else:
+            inside = valid[None, s:s + chunk] > 0
+        for k in range(p.shape[1]):
+            pk = p[None, :, k]
+            inside = inside & (pk >= lo[:, k, None]) & (pk <= hi[:, k, None])
+        out += inside.sum(dim=1, dtype=torch.int32)
+    return out
+
+
 def gathered_dist2_ref(queries, points, valid):
     """(nq, npp) squared distances ``sum_d (p - q)^2`` from each query to
     its own gathered points, accumulated per dimension; slots with

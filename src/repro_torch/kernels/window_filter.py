@@ -1,5 +1,6 @@
 """Launchers for ``csrc/window_filter.cu``: ``box_hits``,
-``pair_window_ids`` and ``window_count_gathered`` on CUDA tensors.
+``pair_window_ids``, ``window_count_gathered``, ``window_mask_gathered``
+and ``window_count_tiles`` on CUDA tensors.
 
 They replace the JAX package's Pallas kernels of the same names
 (``box_hits_tiled`` for the first; ``repro/kernels/window_filter.py``).  Each launcher
@@ -109,4 +110,66 @@ def window_count_gathered(lo, hi, points, valid) -> torch.Tensor:
     )
     launches.raise_on_error(rc, "window_count_gathered")
     launches.bump("window_count_gathered")
+    return out
+
+
+_WMG_THREADS = 256    # threads per block of window_mask_gathered
+# the smallest window tile of window_count_tiles (d = 64) times the
+# 65535 blocks of gridDim.y
+_WCT_MAX_WINDOWS = 64 * 65535
+
+
+def window_mask_gathered(lo, hi, points, valid) -> torch.Tensor:
+    """(nq, npp) int32 containment mask, each window over its own gathered
+    ``(npp, d)`` points; see ``ref.window_mask_gathered_ref``."""
+    nq, npp, d = points.shape
+    launches.check_dim(d)
+    launches.check(lo, "lo", _F32, (nq, d))
+    launches.check(hi, "hi", _F32, (nq, d))
+    launches.check(points, "points", _F32, (nq, npp, d))
+    launches.check(valid, "valid", _I32, (nq, npp))
+    launches.same_device(lo, hi, points, valid)
+    launches.check_extents(nq=nq, npp=npp, blocks=-(-nq * npp // _WMG_THREADS))
+    out = torch.empty((nq, npp), dtype=torch.int32, device=lo.device)
+    if out.numel() == 0:  # nothing to launch
+        return out
+    rc = _fn("window_mask_gathered_launch", 5, 3)(
+        lo.data_ptr(), hi.data_ptr(), points.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), nq, npp, d,
+        torch.cuda.current_stream(lo.device).cuda_stream,
+    )
+    launches.raise_on_error(rc, "window_mask_gathered")
+    launches.bump("window_mask_gathered")
+    return out
+
+
+def window_count_tiles(lo, hi, points, valid=None) -> torch.Tensor:
+    """(nq,) int32 in-window counts over one shared ``(np, d)`` point
+    table; ``valid`` (np,) int32 or ``None`` (every point counts); see
+    ``ref.window_count_ref``."""
+    nq, d = lo.shape
+    n_p = points.shape[0]
+    launches.check_dim(d)
+    launches.check(lo, "lo", _F32, (nq, d))
+    launches.check(hi, "hi", _F32, (nq, d))
+    launches.check(points, "points", _F32, (n_p, d))
+    ts = (lo, hi, points)
+    if valid is not None:
+        launches.check(valid, "valid", _I32, (n_p,))
+        ts += (valid,)
+    launches.same_device(*ts)
+    if nq > _WCT_MAX_WINDOWS:
+        raise ValueError(f"window_count_tiles takes at most {_WCT_MAX_WINDOWS} "
+                         f"windows, got {nq}")
+    launches.check_extents(np=n_p)
+    out = torch.empty((nq,), dtype=torch.int32, device=lo.device)
+    if nq == 0:  # nothing to launch
+        return out
+    rc = _fn("window_count_tiles_launch", 5, 3)(
+        lo.data_ptr(), hi.data_ptr(), points.data_ptr(),
+        None if valid is None else valid.data_ptr(), out.data_ptr(), nq, n_p, d,
+        torch.cuda.current_stream(lo.device).cuda_stream,
+    )
+    launches.raise_on_error(rc, "window_count_tiles")
+    launches.bump("window_count_tiles")
     return out

@@ -24,7 +24,7 @@ from repro_torch.core import (
     window_query_batch_torch,
 )
 from repro_torch.core.datasets import osm_like
-from repro_torch.kernels import knn_topk, launches, partition_assign, ref, window_filter
+from repro_torch.kernels import knn_topk, launches, ops, partition_assign, ref, window_filter
 from repro_torch.serve import RetrievalServer
 
 F32_MAX = np.finfo(np.float32).max
@@ -214,3 +214,110 @@ def test_retrieval_server_on_the_card_matches_the_cpu_server(cuda, tmp_path):
     counts = launches.counts()
     new = ("partition_assign", "window_count_gathered", "pairwise_dist2", "gathered_dist2")
     assert all(counts[k] > 0 for k in new), counts
+
+
+def _with_non_finite(rng, x):
+    """A copy of ``x`` with about one coordinate in 20 set to NaN or +-inf."""
+    x = x.copy()
+    flat = x.reshape(-1)
+    pick = rng.choice(flat.size, size=max(1, flat.size // 20), replace=False)
+    flat[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), len(pick))
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 3, 5, 12])
+def test_cuda_window_kernels_match_plain(cuda, d):
+    """``window_mask_gathered`` and ``window_count_tiles`` bit for bit
+    against their plain versions, with non-finite coordinates, more than
+    65,535 mask rows and more windows than one tile of the count (d = 12
+    takes the count's path for points too wide for registers)."""
+    rng = np.random.default_rng(60 + d)
+    q, lo, hi, gpts, gvalid, pts, valid, *_ = _retrieval_inputs(rng, d)
+    gpts, pts = _with_non_finite(rng, gpts), _with_non_finite(rng, pts)
+    lo[-1], hi[-1] = -np.inf, np.inf
+    rows = 70_000
+    r_lo = rng.random((rows, d)).astype(np.float32)
+    r_hi = r_lo + np.float32(0.5)
+    r_pts = rng.random((rows, 3, d)).astype(np.float32)
+    r_valid = (rng.random((rows, 3)) < 0.8).astype(np.int32)
+    w_lo = rng.random((1100, d)).astype(np.float32) * np.float32(0.7)
+    w_hi = w_lo + np.float32(0.3)
+    cases = [
+        (window_filter.window_mask_gathered, ref.window_mask_gathered_ref,
+         (lo, hi, gpts, gvalid)),
+        (window_filter.window_mask_gathered, ref.window_mask_gathered_ref,
+         (r_lo, r_hi, r_pts, r_valid)),
+        (window_filter.window_count_tiles, ref.window_count_ref, (lo, hi, pts, valid)),
+        (window_filter.window_count_tiles, ref.window_count_ref, (lo, hi, pts, None)),
+        (window_filter.window_count_tiles, ref.window_count_ref,
+         (w_lo, w_hi, pts, valid)),
+    ]
+    for kernel, plain, args in cases:
+        args = tuple(None if a is None else torch.from_numpy(a).to(cuda) for a in args)
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape
+        assert torch.equal(got, want), kernel.__name__
+
+
+@pytest.mark.gpu
+def test_cuda_window_launchers_reject_bad_arguments(cuda):
+    f = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=cuda)
+    i32 = torch.int32
+    with pytest.raises(TypeError):
+        window_filter.window_mask_gathered(f(3, 2), f(3, 2), f(3, 7, 2), f(3, 7))
+    with pytest.raises(TypeError):
+        window_filter.window_count_tiles(f(3, 2, dtype=torch.float64), f(3, 2), f(9, 2))
+    with pytest.raises(ValueError, match="shape"):
+        window_filter.window_count_tiles(f(3, 2), f(3, 2), f(9, 2), f(8, dtype=i32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        window_filter.window_mask_gathered(f(3, 2), f(3, 2).cpu(), f(3, 7, 2),
+                                           f(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="1 <= d <= 64"):
+        window_filter.window_count_tiles(f(3, 65), f(3, 65), f(9, 65))
+    # zero windows or zero points launch nothing and count nothing
+    assert window_filter.window_count_tiles(f(0, 2), f(0, 2), f(9, 2)).shape == (0,)
+    assert window_filter.window_count_tiles(f(4, 2), f(4, 2), f(0, 2)).tolist() == [0] * 4
+
+
+@pytest.mark.gpu
+def test_window_count_op_launches_the_tiles_kernel(cuda):
+    rng = np.random.default_rng(7)
+    pts = torch.from_numpy(rng.random((50_000, 2)).astype(np.float32)).to(cuda)
+    lo = torch.from_numpy(rng.random((300, 2)).astype(np.float32) * 0.8).to(cuda)
+    hi = lo + 0.2
+    launches.reset()
+    got = ops.window_count(lo, hi, pts)
+    assert launches.counts()["window_count_tiles"] == 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ops.window_count(lo.cpu(), hi.cpu(), pts.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compressed", [False, True])
+def test_unfused_engine_on_the_card_matches_the_plain_engine(cuda, compressed):
+    rng = np.random.default_rng(1)
+    pts = (rng.random((100_000, 2)) ** 2).astype(np.float32).astype(np.float64)
+    idx = bulk_load(pts, 60, PageStore(60))
+    on_card = DeviceTable.from_index(idx, compressed=compressed)
+    on_cpu = DeviceTable.from_index(idx, compressed=compressed, device="cpu")
+    c = rng.random((200, 2)).astype(np.float32)
+    los, his = c - np.float32(0.03), c + np.float32(0.03)
+    launches.reset()
+    got = window_query_batch_torch(on_card, los, his, fused=False)
+    for a, b in zip(got, window_query_batch_torch(on_cpu, los, his, fused=False)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, window_query_batch_torch(on_card, los, his, fused=True)):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+    qs = rng.random((200, 2)).astype(np.float32)
+    _, gd, ge = knn_query_batch_torch(on_card, qs, 10, fused=False, n_candidate_leaves=1,
+                                      return_dists=True, return_exact=True)
+    _, wd, we = knn_query_batch_torch(on_cpu, qs, 10, fused=False, n_candidate_leaves=1,
+                                      return_dists=True, return_exact=True)
+    np.testing.assert_array_equal(ge, we)
+    for a, b in zip(gd, wd):
+        np.testing.assert_array_equal(a, b)
+    counts = launches.counts()
+    assert all(counts[k] > 0 for k in ("box_hits", "window_mask_gathered", "leaf_mindist",
+                                       "gathered_dist2")), counts

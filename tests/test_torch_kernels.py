@@ -368,3 +368,113 @@ def test_knn_topk_matches_jax_on_grid_data(d, k):
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(jidx))
         _assert_f32(got_d.numpy(), np.asarray(jd2), exact=True)
     assert np.all(valid[idx.numpy()] == 1)
+
+
+# --------------------------------------------------------------------------
+# kernels 5 and 9: window_mask_gathered and window_count_tiles
+# --------------------------------------------------------------------------
+def _non_finite(rng, x):
+    """Set about one coordinate in 20 of ``x`` to NaN, +inf or -inf (in
+    place): a NaN coordinate is never inside, an infinite one only in a
+    window that reaches it."""
+    flat = x.reshape(-1)
+    pick = rng.choice(flat.size, size=max(1, flat.size // 20), replace=False)
+    flat[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), len(pick))
+
+
+def _open_windows(lo, hi):
+    """Make the last window unbounded (-inf, +inf) in every dimension."""
+    lo[-1], hi[-1] = -np.inf, np.inf
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+@pytest.mark.parametrize("nq,npp", [(1, 1), (13, 37), (9, 600)])
+@pytest.mark.parametrize("grid", [False, True])
+def test_window_mask_gathered_matches_jax(d, nq, npp, grid):
+    rng = np.random.default_rng(900 + d + nq + npp + grid)
+    lo, hi = _windows(rng, nq, d, grid)
+    pts, valid = _gathered(rng, nq, npp, d, grid)   # row 0 and 30 % of slots invalid
+    _non_finite(rng, pts)
+    _open_windows(lo, hi)
+    args = (lo, hi, pts, valid)
+    got = ops.window_mask_gathered(*map(_t, args))
+    assert got.dtype == torch.int32 and got.shape == (nq, npp)
+    got = got.numpy()
+    np.testing.assert_array_equal(got, ref.window_mask_gathered_ref(*map(_t, args)).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.window_mask_gathered_ref(*map(jnp.asarray, args))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.window_mask_gathered(*args, interpret=True)))
+    assert not got[valid == 0].any() and not got[0].any()
+    assert not got[np.isnan(pts).any(axis=2)].any()
+    # the mask's row sums are the gathered counts
+    np.testing.assert_array_equal(
+        got.sum(axis=1), ops.window_count_gathered(*map(_t, args)).numpy())
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+@pytest.mark.parametrize("nq,n_p", [(1, 1), (13, 1100), (130, 37)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_count_matches_jax(d, nq, n_p, masked):
+    rng = np.random.default_rng(1000 + d + nq + n_p + masked)
+    lo, hi = _windows(rng, nq, d, grid=False)
+    pts = _coords(rng, (n_p, d), grid=False)
+    _non_finite(rng, pts)
+    _open_windows(lo, hi)
+    valid = (rng.random(n_p) < 0.7).astype(np.int32) if masked else None
+    jvalid = valid if masked else np.ones(n_p, np.int32)
+    got = ops.window_count(_t(lo), _t(hi), _t(pts), None if valid is None else _t(valid))
+    assert got.dtype == torch.int32 and got.shape == (nq,)
+    got = got.numpy()
+    want = np.asarray(jref.window_count_ref(*map(jnp.asarray, (lo, hi, pts, jvalid))))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.window_count(lo, hi, pts, valid, interpret=True)))
+    finite = np.isfinite(pts).all(axis=1) & (jvalid > 0)
+    assert got[-1] == (jvalid[~np.isnan(pts).any(axis=1)] > 0).sum() >= finite.sum()
+
+
+@pytest.mark.parametrize("plane", [1, 7, 1000])
+def test_window_count_ref_chunks_equal_one_pass(monkeypatch, plane):
+    """The plain version sums over chunks of the point axis; any chunk size
+    gives the one-pass count, with or without a validity mask."""
+    rng = np.random.default_rng(1100 + plane)
+    lo, hi = _windows(rng, 11, 3, grid=True)
+    pts = _coords(rng, (500, 3), grid=True)
+    valid = (rng.random(500) < 0.6).astype(np.int32)
+    whole = [ref.window_count_ref(_t(lo), _t(hi), _t(pts), v)
+             for v in (None, _t(valid))]
+    monkeypatch.setattr(ref, "WINDOW_COUNT_PLANE_BYTES", plane * 11)
+    for v, want in zip((None, _t(valid)), whole):
+        np.testing.assert_array_equal(
+            ref.window_count_ref(_t(lo), _t(hi), _t(pts), v).numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        whole[1].numpy(),
+        np.asarray(jref.window_count_ref(*map(jnp.asarray, (lo, hi, pts, valid)))))
+
+
+def test_window_launchers_reject_what_the_kernels_do_not_take():
+    """Checked before anything is built or launched: a CPU tensor or a
+    too-wide point raises, and no count moves; other devices have no
+    kernel."""
+    from repro_torch.kernels import launches, window_filter
+
+    launches.reset()
+    f, i32 = torch.zeros, torch.int32
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        window_filter.window_mask_gathered(f(3, 2), f(3, 2), f(3, 7, 2), f(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        window_filter.window_count_tiles(f(3, 2), f(3, 2), f(9, 2), f(9, dtype=i32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        window_filter.window_count_tiles(f(3, 2), f(3, 2), f(9, 2))
+    with pytest.raises(ValueError, match="1 <= d <= 64"):
+        window_filter.window_count_tiles(f(3, 65), f(3, 65), f(9, 65))
+    with pytest.raises(ValueError, match="1 <= d <= 64"):
+        window_filter.window_mask_gathered(f(3, 65), f(3, 65), f(3, 7, 65),
+                                           f(3, 7, dtype=i32))
+    assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.window_mask_gathered(meta(3, 2), meta(3, 2), meta(3, 7, 2), meta(3, 7, dtype=i32))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.window_count(meta(3, 2), meta(3, 2), meta(9, 2))
