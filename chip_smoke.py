@@ -52,19 +52,24 @@ Phases (any failure exits non-zero; nothing is caught):
    largest call per kernel and bound type for ``box_hits``,
    ``window_mask_gathered`` and the retrieval kernels, the first for the
    others, recorded during phases 3, 3u, 3c and 5; ``window_count_tiles``
-   at all 1024 windows over all points) and held bit for bit against its
-   plain PyTorch version on the card; both are timed with CUDA events, and
-   ``pairwise_dist2`` beside ``torch.cdist``.  The same comparison runs at
-   d = 5.
+   at all 1024 windows over all points; ``partition_assign`` also at its
+   smallest call, one adaptive batch of 64 queries, which takes the
+   small-n kernel where all points take the shared-table one; the other
+   kernels of ``SMALLEST`` also at their smallest call) and held bit for
+   bit against its plain PyTorch version on the card; both are timed with
+   CUDA events, ``pairwise_dist2`` beside ``torch.cdist``, and each
+   smallest call also by its device time under ``torch.profiler``.
+   The same comparison runs at d = 5, where ``window_count_tiles`` and
+   ``partition_assign`` are timed too.  Each phase also counts its
+   launches by shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, and of the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
-share, time by kernel name).  The line
-before the last is one JSON object listing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the ``src/`` tree beside this file, it exits non-zero and prints no
-result.
+share, time by kernel name).  The line before the last is one JSON
+object listing the kernels; the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or without the ``src/`` tree beside
+this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -130,6 +135,13 @@ BOUND_ARG = {"box_hits": 0, "pair_window_ids": 2, "leaf_mindist": 1,
              "pairwise_dist2": 1, "gathered_dist2": 1, "window_mask_gathered": 2,
              "window_count_tiles": 2}
 LARGEST = ("box_hits", "window_mask_gathered") + RETRIEVAL
+# also kept: the smallest call (``route`` of one adaptive batch of 64
+# queries; the root level of the frontier; the last rounds' pair chunks),
+# timed by its device time: the launches a per-launch table leaves out
+SMALLEST = ("partition_assign", "box_hits", "pair_window_ids", "leaf_mindist",
+            "pair_dist2")
+# timed at d = 5 as well (the two kernels with a redesign to compare)
+TIMED_D5 = ("window_count_tiles", "partition_assign")
 
 
 def log(*a) -> None:
@@ -144,16 +156,20 @@ class Recorder:
     per kernel and bound dtype, the arguments of one call: the largest for
     ``box_hits``, ``window_mask_gathered`` and the retrieval kernels, the
     first call (the whole batch's first round or first pair chunk) for the
-    others."""
+    others, and for the kernels of ``SMALLEST`` also the smallest (key
+    dtype ``<dtype>:smallest``).  ``shapes`` counts the calls of every kernel,
+    not only those of ``names``, by ``"<bound argument shape> -> <output
+    shape>"``."""
 
     def __init__(self, ops, names):
         self.ops = ops
         self.names = names
         self.calls: dict = {}
+        self.shapes: dict = {}
         self._orig = {}
 
     def __enter__(self):
-        for name in self.names:
+        for name in OPS_NAME:
             fn_name = OPS_NAME[name]
             orig = getattr(self.ops, fn_name)
             self._orig[fn_name] = orig
@@ -168,10 +184,20 @@ class Recorder:
         def call(*args, **kw):
             out = orig(*args, **kw)
             first = out[0] if isinstance(out, tuple) else out
-            key = (name, str(args[BOUND_ARG[name]].dtype).replace("torch.", ""))
-            if key not in self.calls or (
-                    name in LARGEST and first.numel() > self.calls[key][2]):
+            bound = args[BOUND_ARG[name]]
+            dtype = str(bound.dtype).replace("torch.", "")
+            key = (name, dtype)
+            if name in self.names and (key not in self.calls or (
+                    name in LARGEST and first.numel() > self.calls[key][2])):
                 self.calls[key] = (args, kw, first.numel())
+            small = (name, f"{dtype}:smallest")
+            if name in self.names and name in SMALLEST and (
+                    small not in self.calls or first.numel() < self.calls[small][2]):
+                self.calls[small] = (args, kw, first.numel())
+            shape = (f"{dtype} {'x'.join(map(str, bound.shape))} -> "
+                     f"{'x'.join(map(str, first.shape))}")
+            by_shape = self.shapes.setdefault(name, {})
+            by_shape[shape] = by_shape.get(shape, 0) + 1
             return out
         return call
 
@@ -297,12 +323,13 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
                 log(f"[{tag}] {kind} batch ({name} bounds): {rec}")
     counts = launches.counts()
     out["launches"] = counts
+    out["launch_shapes"] = recorder.shapes
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     missing = [kk for kk in MAIN_PATH if counts[kk] == 0]
     if missing:
         raise AssertionError(f"[{tag}] kernels not launched on the main path: {missing}")
-    log(f"[{tag}] main-path launches {counts}; max_memory_allocated "
-        f"{out['max_memory_allocated']} B")
+    log(f"[{tag}] main-path launches {counts}; by shape {recorder.shapes}; "
+        f"max_memory_allocated {out['max_memory_allocated']} B")
 
     qlo = torch.from_numpy(los.astype(np.float32)).to(device)
     qhi = torch.from_numpy(his.astype(np.float32)).to(device)
@@ -381,6 +408,7 @@ def unfused_path(tag, inputs, k, torch, rt, launches, profile=False):
                 log(f"[{tag}] unfused {kind} batch ({name} export): {rec}")
     counts = launches.counts()
     out["launches"] = counts
+    out["launch_shapes"] = recorder.shapes
     missing = [kk for kk in UNFUSED if counts[kk] == 0]
     if missing:
         raise AssertionError(f"[{tag}] kernels not launched on the unfused path: {missing}")
@@ -403,8 +431,8 @@ def unfused_path(tag, inputs, k, torch, rt, launches, profile=False):
             if not np.array_equal(a, b):
                 raise AssertionError(f"[{tag}] unfused k-NN query {i} ({name}) differs "
                                      f"from the fused batch: {a} vs {b}")
-    log(f"[{tag}] unfused launches {counts}; every window and k-NN distance sequence "
-        f"of both exports equals the fused batch's")
+    log(f"[{tag}] unfused launches {counts}; by shape {recorder.shapes}; every window "
+        f"and k-NN distance sequence of both exports equals the fused batch's")
     if profile:
         out["profile"] = {
             name: profile_batches({
@@ -432,6 +460,7 @@ def window_count_path(tag, pts, inputs, torch, launches, device="cuda"):
         counts, out = timed_runs(lambda: ops.window_count(lo, hi, pts_dev).cpu().numpy(),
                                  torch, launches)
     out["launches"] = launched = launches.counts()
+    out["launch_shapes"] = recorder.shapes
     out.update(windows=len(lo), points=len(pts_dev))
     if launched["window_count_tiles"] == 0:
         raise AssertionError(f"[{tag}] window_count_tiles not launched")
@@ -525,6 +554,7 @@ def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
                                 "leaf_size": boot.index.leaf_size}
     launched = launches.counts()
     out["launches"] = launched
+    out["launch_shapes"] = recorder.shapes
     missing = [kk for kk in RETRIEVAL if launched[kk] == 0]
     if missing:
         raise AssertionError(f"[{tag}] retrieval kernels not launched: {missing}")
@@ -533,7 +563,7 @@ def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
         log(f"[{tag}] {name}: {out[name]}")
     log(f"[{tag}] snapshot save {out['snapshot_save_s']:.3f} s, boot "
         f"{out['snapshot_boot_s']:.3f} s ({out['snapshot_grid']}); retrieval "
-        f"launches {launched}")
+        f"launches {launched}; by shape {recorder.shapes}")
 
     if counts.shape != (len(lo32),) or not np.array_equal(counts, inputs["window_counts"]):
         bad = np.flatnonzero(counts != inputs["window_counts"])
@@ -714,7 +744,29 @@ def time_ms(fn, reps, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
+def device_ms(fn, reps, torch) -> float:
+    """Device time of one call: the summed durations of the device events
+    (kernels, memsets) of ``reps`` calls under ``torch.profiler``, over
+    ``reps``.  Unlike :func:`time_ms` it leaves out the host's launch gaps,
+    which are most of a back-to-back loop of small launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
+    """Hold each recorded call's kernel bit for bit against its plain
+    version; ``timed`` (True, or the names to time) adds CUDA-event times
+    of kernel and plain version, the bound and the library call, and for a
+    ``:smallest`` call also the profiler's device time."""
     from repro_torch.kernels import knn_topk, partition_assign, ref, window_filter
 
     kernel = {"box_hits": window_filter.box_hits,
@@ -753,7 +805,7 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
                                  f"max abs err {err}")
         rec = {"shapes": [None if a is None else list(a.shape) for a in args],
                "max_abs_err": err, **kw}
-        if timed:
+        if timed is True or (timed and name in timed):
             b, ops = byte_and_op_counts(name, args, kw, got_t, torch)
             bytes_ms = b / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -766,6 +818,8 @@ def kernel_phase(calls, torch, timed: bool, reps: int = 20) -> dict:
                 library_ms=(time_ms(lambda: library[name](*args), reps, torch)
                             if name in library else None),
             )
+            if bdtype.endswith(":smallest"):
+                rec["device_ms"] = device_ms(lambda: kernel[name](*args, **kw), reps, torch)
         res[(name, bdtype)] = rec
         log(f"kernel {name} ({bdtype}): bitwise equal to plain; {rec}")
     return res
@@ -835,7 +889,7 @@ def main(argv=None) -> int:
     del pts5, inputs
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
-    kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=False)
+    k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
 
     line = []
     for name, (source, replaces) in REPLACES.items():
@@ -847,13 +901,17 @@ def main(argv=None) -> int:
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
         }
-        bf = k2.get((name, "bfloat16"))
-        if bf is not None:
-            entry["bf16"] = {key: bf[key] for key in
-                             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        for label, rec in (("bf16", k2.get((name, "bfloat16"))),
+                           ("smallest", k2.get((name, "float32:smallest"))),
+                           ("d5", k5.get((name, "float32")) if name in TIMED_D5 else None)):
+            if rec is not None:
+                entry[label] = {key: rec[key] for key in
+                                ("shapes", *timing, "device_ms") if key in rec}
         line.append(entry)
     results["kernels"] = line
     results["kernel_detail"] = {f"{n}[{b}]": v for (n, b), v in k2.items()}
+    results["kernel_detail_d5"] = {f"{n}[{b}]": v for (n, b), v in k5.items()}
     results["total_s"] = time.perf_counter() - t_start
     if args.out:
         path = pathlib.Path(args.out)

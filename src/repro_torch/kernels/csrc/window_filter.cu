@@ -63,20 +63,36 @@
 //   their counts with integer atomics, which are exact in any order.
 //   Bound on the H100: operations, nq*np*2d compares (1024 windows over
 //   10M points at d = 2 is 4.1e10), far above its bytes (np*(4d + 4) +
-//   nq*(8d + 4)).  Design: a 2-D grid of (point chunk, window tile); the
-//   tile's bounds sit in shared memory laid out [dim][window], so a warp
-//   reads one window's bounds as a broadcast; each lane holds WCT_PPL
-//   points in registers (the dimension is a template argument up to 8;
-//   wider points are read through L1), the warp tests its 32 * WCT_PPL
-//   points against one window at a time and counts them with
-//   __popc(__ballot_sync(...)); lane l keeps the count of window l of each
-//   32-window pass, adds it to the block's count in shared memory, and the
-//   block adds its counts to out (zeroed by the launch function) with one
-//   atomicAdd per window.
+//   nq*(8d + 4)).  What limits a design is instruction issue, and first
+//   the compare pipe: an FSETP tests one coordinate against one bound for
+//   32 lanes and issues at half the warp rate, so 2d FSETPs per 32
+//   point-window tests bound any float design.  Design: lanes own windows
+//   and points stream past them, compared as integers.  Each thread holds
+//   R windows in registers (R = 4 at d <= 4, 2 at d <= 8; d is a template
+//   argument up to 8) as one (base, width) pair per dimension of
+//   order-preserving int32 keys, so lo <= x <= hi is the single unsigned
+//   compare (unsigned)(key(x) - base) <= width; an empty or NaN bound is a
+//   pair no key can meet.  A block of 256 threads covers a tile of 256 R
+//   windows (gridDim.y tiles larger batches) and walks its contiguous
+//   range of points through shared memory in double-buffered stages
+//   loaded with cp.async.  While a stage lands, each thread turns the
+//   points it copied into keys, and an invalid point (or a slot past the
+//   range) into NaN's key, which fails every test, as NaN fails the plain
+//   version's >= and <=.  Then every lane reads the same point (a
+//   broadcast vector LDS, no bank conflicts) and tests it against its R
+//   windows: per window and dimension one subtraction and one chained
+//   ISETP, then one predicated add (PTX, so that nvcc emits one
+//   instruction), with no ballot, no popc and no cross-lane reduction.
+//   The grid is persistent (the blocks that fit on the card at once,
+//   shared among the window tiles), and each block adds its counts into
+//   out (zeroed by the launch function) once, one atomicAdd per window.
+//   d > 8 keeps f32 points, one window per thread, and reads the window's
+//   bounds through L1: correct, not fast.
 //
 // Every index in the launch interface is int32; offsets into the arrays
 // are formed in 64 bits.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -93,11 +109,10 @@ constexpr int WCG_THREADS = 256;
 
 constexpr int WMG_THREADS = 256;
 
-constexpr int WCT_WARPS = 8;             // warps per block
-constexpr int WCT_PPL = 8;               // points per lane
-constexpr int WCT_CHUNK = WCT_WARPS * 32 * WCT_PPL;  // points per block
-constexpr int WCT_MAX_TILE = 1024;       // windows per block (gridDim.y)
-constexpr int WCT_SMEM = 48 * 1024;      // dynamic shared memory without opt-in
+constexpr int WCT_THREADS = 256;         // threads per block
+constexpr int WCT_STAGE_FLOATS = 4096;   // coordinates per stage buffer (16 KB)
+constexpr int WCT_MAX_STAGE = 1024;      // points per stage
+constexpr int WCT_UNROLL = 8;            // points per step of the test loop
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t x) {
@@ -277,99 +292,271 @@ window_mask_gathered_kernel(const float* __restrict__ lo,
   out[i] = in ? 1 : 0;
 }
 
-// Windows per block of window_count_tiles at dimension d: as many as
-// WCT_SMEM holds (bounds 8d bytes and a count 4 bytes each), a multiple
-// of 32, at most WCT_MAX_TILE (64 at d = 64).
-int wct_tile(int d) {
-  const int fit = WCT_SMEM / (8 * d + 4) / 32 * 32;
-  return fit < WCT_MAX_TILE ? fit : WCT_MAX_TILE;
+// The windows one thread holds (R) and the stage's stride per point (DP,
+// a power of two, so that one point is one broadcast vector load) at
+// dimension D; D == 0 is any d > 8, one window per thread, stride d.
+template <int D>
+struct Wct {
+  static constexpr int R = D == 0 ? 1 : (D <= 4 ? 4 : 2);
+  static constexpr int DP = D <= 1 ? 1 : (D <= 2 ? 2 : (D <= 4 ? 4 : 8));
+};
+
+// Points per stage: WCT_STAGE_FLOATS coordinates at the stage's stride,
+// at most WCT_MAX_STAGE, a multiple of WCT_UNROLL (64 at d = 64).
+int wct_stage(int dp) {
+  const int fit = WCT_STAGE_FLOATS / dp / WCT_UNROLL * WCT_UNROLL;
+  return fit < WCT_MAX_STAGE ? fit : WCT_MAX_STAGE;
 }
 
-// D > 0: the dimension, points held in registers; D == 0: any d, each
-// coordinate read again (through L1) for each window.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {   // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One point's keys of a stage into registers: one broadcast LDS of DP
+// words (two at DP = 8); every lane of the warp reads the same address.
+template <int DP>
+__device__ __forceinline__ void load_point(const int* p, int (&x)[DP]) {
+  if constexpr (DP == 1) {
+    x[0] = p[0];
+  } else if constexpr (DP == 2) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < DP; h += 4) {
+      const int4 v = *reinterpret_cast<const int4*>(p + h);
+      x[h] = v.x; x[h + 1] = v.y; x[h + 2] = v.z; x[h + 3] = v.w;
+    }
+  }
+}
+
+// The order-preserving int32 key of a coordinate: a < b exactly when
+// key(a) < key(b), for every pair of non-NaN floats (-0 keys as +0, as
+// the two compare equal); NaN keys as INT_MAX, above +inf's key.
+__device__ __forceinline__ int wct_key(float f) {
+  if (f != f) return INT_MAX;
+  const int b = __float_as_int(f == 0.f ? 0.f : f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// One dimension of a window as (base, width): the keys x with
+// (unsigned)(x - base) <= width are exactly those of lo <= x <= hi, one
+// compare instead of two.  An empty bound (lo > hi, or a NaN bound) is
+// (INT_MIN, 0): only the key INT_MIN would match, and no float has it.
+__device__ __forceinline__ void wct_bound(float lo, float hi, int& base,
+                                          int& width) {
+  const bool empty = !(lo <= hi);
+  base = empty ? INT_MIN : wct_key(lo);
+  // mod 2^32 (a whole-line bound spans more than INT_MAX), read as unsigned
+  width = empty ? 0
+                : static_cast<int>(static_cast<unsigned>(wct_key(hi)) -
+                                   static_cast<unsigned>(base));
+}
+
+// count += (point key x in window (b, w) in every one of D dimensions): D
+// subtractions, D chained unsigned setp and one predicated add.  Written
+// in PTX because nvcc turns `if (in) ++count` into an add and a
+// predicated move: two instructions where one will do.
 template <int D>
-__global__ void __launch_bounds__(WCT_WARPS * 32)
+__device__ __forceinline__ void count_in(const int* x, const int* b,
+                                         const int* w, int& c);
+#define WCT_FIRST "sub.u32 t, %1, %2;\n\tsetp.le.u32 p, t, %3;\n\t"
+#define WCT_AND(a, b, c) "sub.u32 t, %" #a ", %" #b ";\n\t" \
+                         "setp.le.and.u32 p, t, %" #c ", p;\n\t"
+#define WCT_OPS(k) "r"(x[k]), "r"(b[k]), "r"(w[k])
+#define WCT_COUNT_IN(D, CHAIN, ...)                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void count_in<D>(const int* x, const int* b,    \
+                                              const int* w, int& c) {        \
+    asm("{\n\t.reg .pred p;\n\t.reg .u32 t;\n\t" CHAIN                       \
+        "@p add.s32 %0, %0, 1;\n\t}"                                         \
+        : "+r"(c) : __VA_ARGS__);                                            \
+  }
+WCT_COUNT_IN(1, WCT_FIRST, WCT_OPS(0))
+WCT_COUNT_IN(2, WCT_FIRST WCT_AND(4, 5, 6), WCT_OPS(0), WCT_OPS(1))
+WCT_COUNT_IN(3, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9), WCT_OPS(0),
+             WCT_OPS(1), WCT_OPS(2))
+WCT_COUNT_IN(4, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9)
+             WCT_AND(10, 11, 12), WCT_OPS(0), WCT_OPS(1), WCT_OPS(2),
+             WCT_OPS(3))
+WCT_COUNT_IN(5, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9)
+             WCT_AND(10, 11, 12) WCT_AND(13, 14, 15), WCT_OPS(0), WCT_OPS(1),
+             WCT_OPS(2), WCT_OPS(3), WCT_OPS(4))
+WCT_COUNT_IN(6, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9)
+             WCT_AND(10, 11, 12) WCT_AND(13, 14, 15) WCT_AND(16, 17, 18),
+             WCT_OPS(0), WCT_OPS(1), WCT_OPS(2), WCT_OPS(3), WCT_OPS(4),
+             WCT_OPS(5))
+WCT_COUNT_IN(7, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9)
+             WCT_AND(10, 11, 12) WCT_AND(13, 14, 15) WCT_AND(16, 17, 18)
+             WCT_AND(19, 20, 21), WCT_OPS(0), WCT_OPS(1), WCT_OPS(2),
+             WCT_OPS(3), WCT_OPS(4), WCT_OPS(5), WCT_OPS(6))
+WCT_COUNT_IN(8, WCT_FIRST WCT_AND(4, 5, 6) WCT_AND(7, 8, 9)
+             WCT_AND(10, 11, 12) WCT_AND(13, 14, 15) WCT_AND(16, 17, 18)
+             WCT_AND(19, 20, 21) WCT_AND(22, 23, 24), WCT_OPS(0), WCT_OPS(1),
+             WCT_OPS(2), WCT_OPS(3), WCT_OPS(4), WCT_OPS(5), WCT_OPS(6),
+             WCT_OPS(7))
+#undef WCT_COUNT_IN
+#undef WCT_OPS
+#undef WCT_AND
+#undef WCT_FIRST
+
+// D > 0: the dimension, each thread holding R windows' bounds in
+// registers as (base, width) key pairs, the stages holding point keys;
+// D == 0: any d, one window per thread, its f32 bounds read through L1
+// for each point, the stages holding f32 points.  Block (x, y) counts the points of its
+// contiguous range (np / gridDim.x of them) for window tile y.
+template <int D>
+__global__ void __launch_bounds__(WCT_THREADS)
 window_count_tiles_kernel(const float* __restrict__ lo,
                           const float* __restrict__ hi,
                           const float* __restrict__ points,
                           const int32_t* __restrict__ valid,
                           int32_t* __restrict__ out, int nq, int np, int dd,
-                          int tile) {
+                          int stage) {
+  constexpr int R = Wct<D>::R;
   constexpr int RD = D > 0 ? D : 1;
   const int d = D > 0 ? D : dd;
-  extern __shared__ float smem[];
-  float* sl = smem;                          // [d][tile]
-  float* sh = smem + d * tile;               // [d][tile]
-  int* scnt = reinterpret_cast<int*>(smem + 2 * d * tile);  // [tile]
-  const int w0 = blockIdx.y * tile;
-  const int nw = min(tile, nq - w0);
+  const int dp = D > 0 ? Wct<D>::DP : dd;
+  extern __shared__ __align__(16) float wct_smem[];
+  int* vbuf = reinterpret_cast<int*>(wct_smem + 2 * stage * dp);  // [2][stage]
   const int tid = threadIdx.x;
-  for (int i = tid; i < d * nw; i += WCT_WARPS * 32) {
-    const int w = i / d;                     // row-major (nq, d) source
-    const int k = i - w * d;
-    sl[k * tile + w] = lo[static_cast<int64_t>(w0 + w) * d + k];
-    sh[k * tile + w] = hi[static_cast<int64_t>(w0 + w) * d + k];
-  }
-  for (int w = tid; w < nw; w += WCT_WARPS * 32) scnt[w] = 0;
-  __syncthreads();
+  const int w0 = blockIdx.y * (R * WCT_THREADS);
+  const float qnan = __int_as_float(0x7fc00000);
 
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * WCT_CHUNK +
-                       static_cast<int64_t>(warp) * 32 * WCT_PPL + lane;
-  bool ok[WCT_PPL];
-  float p[WCT_PPL][RD];
+  // window w0 + r * WCT_THREADS + tid; a padding window (w >= nq) has NaN
+  // bounds, contains nothing and is never flushed
+  int wb[R][RD], ww[R][RD];
+  int cnt[R];
 #pragma unroll
-  for (int j = 0; j < WCT_PPL; ++j) {
-    const int64_t i = base + 32 * j;
-    ok[j] = i < np && (valid == nullptr || valid[i] > 0);
-    if (D > 0) {
+  for (int r = 0; r < R; ++r) {
+    const int w = w0 + r * WCT_THREADS + tid;
+    cnt[r] = 0;
 #pragma unroll
-      for (int k = 0; k < RD; ++k) p[j][k] = ok[j] ? points[i * RD + k] : 0.f;
+    for (int k = 0; k < RD; ++k) {
+      const bool live = D > 0 && w < nq;
+      wct_bound(live ? lo[static_cast<int64_t>(w) * d + k] : qnan,
+                live ? hi[static_cast<int64_t>(w) * d + k] : qnan, wb[r][k], ww[r][k]);
     }
   }
-  for (int wb = 0; wb < nw; wb += 32) {
-    const int nl = min(32, nw - wb);
-    int mine = 0;                            // lane l: window wb + l
-    for (int l = 0; l < nl; ++l) {
-      const int w = wb + l;
-      int c = 0;
+  const int wg = w0 + tid;                       // the D == 0 window
+  const bool warp_live = w0 + (tid & ~31) < nq;  // the warp holds a window
+
+  const int64_t begin = static_cast<int64_t>(np) * blockIdx.x / gridDim.x;
+  const int64_t end = static_cast<int64_t>(np) * (blockIdx.x + 1) / gridDim.x;
+  const int n_stages = static_cast<int>((end - begin + stage - 1) / stage);
+
+  // thread tid copies (and later fixes) points tid, tid + WCT_THREADS, ...
+  // of every stage
+  auto issue = [&](int s) {
+    const int64_t left = end - begin - static_cast<int64_t>(s) * stage;
+    const int n_s = static_cast<int>(left < stage ? left : stage);
+    const int64_t p0 = begin + static_cast<int64_t>(s) * stage;
+    float* bp = wct_smem + (s & 1) * stage * dp;
+    int* bv = vbuf + (s & 1) * stage;
+    for (int p = tid; p < n_s; p += WCT_THREADS) {
+      const float* src = points + (p0 + p) * d;
 #pragma unroll
-      for (int j = 0; j < WCT_PPL; ++j) {
-        bool in = ok[j];
-        if (D > 0) {
+      for (int k = 0; k < RD; ++k) cp_async4(bp + p * dp + k, src + k);
+      if (D == 0)
+        for (int k = 1; k < d; ++k) cp_async4(bp + p * dp + k, src + k);
+      if (valid != nullptr) cp_async4(bv + p, valid + p0 + p);
+    }
+    cp_async_commit();
+  };
+
+  if (n_stages > 0) issue(0);
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) issue(s + 1);
+    else cp_async_commit();                     // an empty group: keep the count
+    cp_async_wait_one();                        // this thread's copies of stage s
+    const int64_t left = end - begin - static_cast<int64_t>(s) * stage;
+    const int n_s = static_cast<int>(left < stage ? left : stage);
+    const int n_round = (n_s + WCT_UNROLL - 1) / WCT_UNROLL * WCT_UNROLL;
+    float* bp = wct_smem + (s & 1) * stage * dp;
+    const int* bv = vbuf + (s & 1) * stage;
+    // validity folded into the data: an invalid point, or a slot past the
+    // range, becomes NaN (D > 0: NaN's key), which fails every test; D > 0
+    // also turns every coordinate into its key
+    for (int p = tid; p < n_round; p += WCT_THREADS) {
+      const bool out = p >= n_s || (valid != nullptr && bv[p] <= 0);
+      float* pt = bp + p * dp;
+      if constexpr (D > 0) {
 #pragma unroll
-          for (int k = 0; k < RD; ++k)
-            in = in & (p[j][k] >= sl[k * tile + w]) & (p[j][k] <= sh[k * tile + w]);
-        } else if (in) {
-          const float* pt = points + (base + 32 * j) * d;
-          for (int k = 0; k < d; ++k) {
-            const float v = pt[k];
-            in = in & (v >= sl[k * tile + w]) & (v <= sh[k * tile + w]);
+        for (int k = 0; k < D; ++k) pt[k] = __int_as_float(out ? INT_MAX : wct_key(pt[k]));
+      } else if (out) {
+        for (int k = 0; k < d; ++k) pt[k] = qnan;
+      }
+    }
+    __syncthreads();
+    if (warp_live) {
+      if constexpr (D > 0) {
+        constexpr int DP = Wct<D>::DP;
+        for (int p = 0; p < n_round; p += WCT_UNROLL) {
+#pragma unroll
+          for (int u = 0; u < WCT_UNROLL; ++u) {
+            int x[DP];
+            load_point<DP>(reinterpret_cast<const int*>(bp) + (p + u) * DP, x);
+#pragma unroll
+            for (int r = 0; r < R; ++r) count_in<D>(x, wb[r], ww[r], cnt[r]);
           }
         }
-        c += __popc(__ballot_sync(0xffffffffu, in));
+      } else if (wg < nq) {
+        const float* wlo = lo + static_cast<int64_t>(wg) * d;
+        const float* whi = hi + static_cast<int64_t>(wg) * d;
+        for (int p = 0; p < n_round; ++p) {
+          const float* x = bp + p * dp;
+          bool in = true;
+          for (int k = 0; k < d && in; ++k)
+            in = x[k] >= __ldg(wlo + k) && x[k] <= __ldg(whi + k);
+          if (in) ++cnt[0];
+        }
       }
-      mine = lane == l ? c : mine;
     }
-    if (lane < nl && mine) atomicAdd(&scnt[wb + lane], mine);
+    __syncthreads();                            // stage s read: its buffer is free
   }
-  __syncthreads();
-  for (int w = tid; w < nw; w += WCT_WARPS * 32) {
-    const int c = scnt[w];
-    if (c) atomicAdd(&out[w0 + w], c);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int w = w0 + r * WCT_THREADS + tid;
+    if (w < nq && cnt[r]) atomicAdd(&out[w], cnt[r]);
   }
 }
 
 template <int D>
-void launch_count_tiles(const float* lo, const float* hi, const float* pts,
-                        const int32_t* valid, int32_t* out, int nq, int np,
-                        int d, cudaStream_t st) {
-  const int tile = wct_tile(d);
-  const dim3 grid((np + WCT_CHUNK - 1) / WCT_CHUNK, (nq + tile - 1) / tile);
-  const size_t shm = static_cast<size_t>(tile) * (8 * d + 4);
-  window_count_tiles_kernel<D><<<grid, WCT_WARPS * 32, shm, st>>>(
-      lo, hi, pts, valid, out, nq, np, d, tile);
+cudaError_t launch_count_tiles(const float* lo, const float* hi,
+                               const float* pts, const int32_t* valid,
+                               int32_t* out, int nq, int np, int d,
+                               cudaStream_t st) {
+  constexpr int R = Wct<D>::R;
+  const int dp = D > 0 ? Wct<D>::DP : d;
+  const int stage = wct_stage(dp);
+  const size_t shm = 2 * static_cast<size_t>(stage) * (dp + 1) * sizeof(float);
+  const int gy = (nq + R * WCT_THREADS - 1) / (R * WCT_THREADS);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, window_count_tiles_kernel<D>, WCT_THREADS, shm);
+  if (rc != cudaSuccess) return rc;
+  // a persistent grid: as many blocks as fit on the card at once, shared
+  // among the window tiles, none with less than one stage of points
+  const int64_t stages = (static_cast<int64_t>(np) + stage - 1) / stage;
+  int64_t gx = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) / gy;
+  gx = gx < 1 ? 1 : gx;
+  gx = gx < stages ? gx : stages;
+  window_count_tiles_kernel<D><<<dim3(static_cast<unsigned>(gx), gy), WCT_THREADS,
+                                 shm, st>>>(lo, hi, pts, valid, out, nq, np, d,
+                                            stage);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -469,17 +656,19 @@ extern "C" int window_count_tiles_launch(const void* lo, const void* hi,
     const float* h = static_cast<const float*>(hi);
     const float* p = static_cast<const float*>(points);
     const int32_t* v = static_cast<const int32_t*>(valid);
+    cudaError_t rc = cudaSuccess;
     switch (d) {
-      case 1: launch_count_tiles<1>(l, h, p, v, o, nq, np, d, st); break;
-      case 2: launch_count_tiles<2>(l, h, p, v, o, nq, np, d, st); break;
-      case 3: launch_count_tiles<3>(l, h, p, v, o, nq, np, d, st); break;
-      case 4: launch_count_tiles<4>(l, h, p, v, o, nq, np, d, st); break;
-      case 5: launch_count_tiles<5>(l, h, p, v, o, nq, np, d, st); break;
-      case 6: launch_count_tiles<6>(l, h, p, v, o, nq, np, d, st); break;
-      case 7: launch_count_tiles<7>(l, h, p, v, o, nq, np, d, st); break;
-      case 8: launch_count_tiles<8>(l, h, p, v, o, nq, np, d, st); break;
-      default: launch_count_tiles<0>(l, h, p, v, o, nq, np, d, st); break;
+      case 1: rc = launch_count_tiles<1>(l, h, p, v, o, nq, np, d, st); break;
+      case 2: rc = launch_count_tiles<2>(l, h, p, v, o, nq, np, d, st); break;
+      case 3: rc = launch_count_tiles<3>(l, h, p, v, o, nq, np, d, st); break;
+      case 4: rc = launch_count_tiles<4>(l, h, p, v, o, nq, np, d, st); break;
+      case 5: rc = launch_count_tiles<5>(l, h, p, v, o, nq, np, d, st); break;
+      case 6: rc = launch_count_tiles<6>(l, h, p, v, o, nq, np, d, st); break;
+      case 7: rc = launch_count_tiles<7>(l, h, p, v, o, nq, np, d, st); break;
+      case 8: rc = launch_count_tiles<8>(l, h, p, v, o, nq, np, d, st); break;
+      default: rc = launch_count_tiles<0>(l, h, p, v, o, nq, np, d, st); break;
     }
+    return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@ It replaces the JAX package's Pallas kernel ``partition_assign``
 (``repro/kernels/partition_assign.py``).  The launcher checks its
 arguments, allocates the output with ``torch.empty``, launches on the
 current stream without synchronising, raises on a launch error and bumps
-its launch count.
+its launch count.  From ``SMEM_MIN_N`` points up the launch copies the
+reachable split tables into each block's shared memory first; below it
+each point reads them through L2, which costs less than the copy.
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ import torch
 from . import build, launches
 
 MAX_LEVELS = 30  # leaf ids are int32
+# the fewest points routed through the shared-memory tables: near the
+# crossover measured on the H100 (PERF.md), where the 160 KB fill per
+# block stops costing more than the L2 round trips it saves
+SMEM_MIN_N = 160_000
 
 
 @functools.cache
@@ -42,9 +48,9 @@ def partition_assign(points, split_dim, split_val, *, levels: int) -> torch.Tens
     out = torch.empty((n,), dtype=torch.int32, device=points.device)
     if n == 0:  # nothing to launch
         return out
-    rc = _fn("partition_assign_launch", 4, 4)(
+    rc = _fn("partition_assign_launch", 4, 5)(
         points.data_ptr(), split_dim.data_ptr(), split_val.data_ptr(),
-        out.data_ptr(), n, d, levels, n_groups,
+        out.data_ptr(), n, d, levels, n_groups, SMEM_MIN_N,
         torch.cuda.current_stream(points.device).cuda_stream,
     )
     launches.raise_on_error(rc, "partition_assign")

@@ -114,9 +114,9 @@ def window_count_gathered(lo, hi, points, valid) -> torch.Tensor:
 
 
 _WMG_THREADS = 256    # threads per block of window_mask_gathered
-# the smallest window tile of window_count_tiles (d = 64) times the
-# 65535 blocks of gridDim.y
-_WCT_MAX_WINDOWS = 64 * 65535
+# the smallest window tile of window_count_tiles (d > 8: 256 threads of
+# one window each) times the 65535 blocks of gridDim.y
+_WCT_MAX_WINDOWS = 256 * 65535
 
 
 def window_mask_gathered(lo, hi, points, valid) -> torch.Tensor:

@@ -321,3 +321,94 @@ def test_unfused_engine_on_the_card_matches_the_plain_engine(cuda, compressed):
     counts = launches.counts()
     assert all(counts[k] > 0 for k in ("box_hits", "window_mask_gathered", "leaf_mindist",
                                        "gathered_dist2")), counts
+
+
+def _wct_stage(d):
+    """Points per stage of ``window_count_tiles`` (``csrc/window_filter.cu``:
+    4096 coordinates at the stage's stride, the dimension rounded up to a
+    power of two up to 8 and d above, at most 1024, a multiple of 8)."""
+    dp = d if d > 8 else 1 << (d - 1).bit_length()
+    return min(4096 // dp // 8 * 8, 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 5, 8, 12])
+@pytest.mark.parametrize("nq", [1, 33, 1023, 1025, 5000])
+def test_window_count_tiles_edge_shapes_match_plain(cuda, d, nq):
+    """The redesigned count bit for bit against its plain version: window
+    batches that are not a multiple of a block's tile and exceed one tile,
+    no point, one, one stage of points and one either side, and enough
+    for several stages per block (both stage buffers reused), under a
+    validity mask and without, with NaN, infinite and signed-zero points
+    and windows with lo > hi, NaN bounds and -0 bounds (the kernel
+    compares order-preserving integer keys, -0 keyed as +0)."""
+    rng = np.random.default_rng(70 + 7 * d + nq)
+    lo = (rng.integers(0, 48, (nq, d)) / 64).astype(np.float32)
+    hi = lo + (rng.integers(0, 24, (nq, d)) / 64).astype(np.float32)
+    flip = np.flatnonzero(rng.random(nq) < 0.2)
+    lo[flip, 0], hi[flip, 0] = hi[flip, 0] + np.float32(1 / 64), lo[flip, 0]
+    lo[lo == 0] = -0.0
+    hi[(hi == 0) & (rng.random((nq, d)) < 0.5)] = -0.0
+    if nq > 2:
+        lo[1, -1] = np.nan
+        hi[2, 0] = np.nan
+    if nq > 1:
+        lo[-1], hi[-1] = -np.inf, np.inf
+    stage = _wct_stage(d)
+    lo_t, hi_t = torch.from_numpy(lo).to(cuda), torch.from_numpy(hi).to(cuda)
+    for n_p in (0, 1, stage - 1, stage, stage + 1, 3_000_017):
+        pts = (rng.integers(0, 64, (n_p, d)) / 64).astype(np.float32)
+        if n_p:
+            pts = _with_non_finite(rng, pts)
+            pts[(pts == 0) & (rng.random((n_p, d)) < 0.5)] = -0.0
+        valid = (rng.random(n_p) < 0.7).astype(np.int32)
+        pts_t = torch.from_numpy(pts).to(cuda)
+        for v in (torch.from_numpy(valid).to(cuda), None):
+            got = window_filter.window_count_tiles(lo_t, hi_t, pts_t, v)
+            want = ref.window_count_ref(lo_t, hi_t, pts_t, v)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype == torch.int32 and got.shape == (nq,)
+            assert torch.equal(got, want), (n_p, v is None)
+            empty = ~(lo <= hi).all(axis=1)
+            assert not got[torch.from_numpy(empty).to(cuda)].any()
+
+
+def _pa_tables(rng, levels, d):
+    """Heap-form split tables on the 1/64 grid, with out-of-range split
+    dimensions and non-finite split values at reachable entries."""
+    groups = 1 << levels
+    n_levels = max(levels, 1)
+    sdim = rng.integers(-2, d + 2, (n_levels, groups)).astype(np.int32)
+    sval = (rng.integers(0, 64, (n_levels, groups)) / 64).astype(np.float32)
+    bad = rng.random((n_levels, groups)) < 0.05
+    sval[bad] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32), bad.sum())
+    return sdim, sval
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 5, 8, 12])
+@pytest.mark.parametrize("levels", [0, 1, 15, 17])
+def test_partition_assign_both_paths_match_plain(cuda, d, levels, monkeypatch):
+    """Both kernels of ``partition_assign`` bit for bit against the plain
+    version: n on either side of ``SMEM_MIN_N`` (the shared-table kernel
+    from there up), deeper than the 15 levels in shared memory, and the
+    same points forced through each kernel."""
+    rng = np.random.default_rng(80 + 3 * d + levels)
+    sdim, sval = (torch.from_numpy(a).to(cuda) for a in _pa_tables(rng, levels, d))
+    thr = partition_assign.SMEM_MIN_N
+    for n in (1, 64, thr - 1, thr, thr + 1, 300_001):
+        pts = (rng.integers(0, 64, (n, d)) / 64).astype(np.float32)
+        pts[rng.random(n) < 0.01] = np.nan
+        pts_t = torch.from_numpy(pts).to(cuda)
+        got = partition_assign.partition_assign(pts_t, sdim, sval, levels=levels)
+        want = ref.partition_assign_ref(pts_t, sdim, sval, levels=levels)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        assert torch.equal(got, want), n
+    for forced in (0, 2**31 - 1):
+        monkeypatch.setattr(partition_assign, "SMEM_MIN_N", forced)
+        launches.reset()
+        got = partition_assign.partition_assign(pts_t, sdim, sval, levels=levels)
+        torch.cuda.synchronize()
+        assert launches.counts()["partition_assign"] == 1
+        assert torch.equal(got, want), forced

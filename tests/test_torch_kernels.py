@@ -274,6 +274,28 @@ def test_partition_assign_sanitises_non_finite_splits_like_the_kernel():
         assert got.tolist() == [0, 0, 0]
 
 
+@pytest.mark.parametrize("d", [2, 5])
+@pytest.mark.parametrize("levels,n", [(17, 300), (17, 1), (15, 1), (1, 1)])
+def test_partition_assign_ref_matches_jax_at_edge_shapes(d, levels, n):
+    """The plain version behind the shared-table and the small-n kernels:
+    deeper than the 15 levels a block's shared memory holds, and a single
+    point (the JAX wrapper pads it to a tile)."""
+    rng = np.random.default_rng(500 + d * 40 + levels + n)
+    pts = _coords(rng, (n, d), grid=True)
+    sdim, sval = _split_tables(rng, levels, d, grid=True)
+    got = ops.partition_assign(_t(pts), _t(sdim), _t(sval), levels=levels).numpy()
+    np.testing.assert_array_equal(
+        got, ref.partition_assign_ref(_t(pts), _t(sdim), _t(sval), levels=levels).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.partition_assign_ref(
+            jnp.asarray(pts), jnp.asarray(sdim), jnp.asarray(sval), levels=levels)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.partition_assign(
+            pts, jnp.asarray(sdim), jnp.asarray(sval), levels=levels, tile=8,
+            interpret=True)))
+    assert got.shape == (n,) and 0 <= got.min() and got.max() < 1 << levels
+
+
 # --------------------------------------------------------------------------
 # kernels 6 and 7: gathered_dist2 and window_count_gathered
 # --------------------------------------------------------------------------
@@ -432,6 +454,33 @@ def test_window_count_matches_jax(d, nq, n_p, masked):
         got, np.asarray(jops.window_count(lo, hi, pts, valid, interpret=True)))
     finite = np.isfinite(pts).all(axis=1) & (jvalid > 0)
     assert got[-1] == (jvalid[~np.isnan(pts).any(axis=1)] > 0).sum() >= finite.sum()
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+@pytest.mark.parametrize("nq,n_p", [(1, 1), (33, 1025), (300, 77)])
+def test_window_count_ref_inverted_windows_and_nan_points_match_jax(d, nq, n_p):
+    """The count's contract at the edges the kernel folds into its data:
+    NaN (and infinite) points under a validity mask, and windows with
+    lo > hi in some dimension, which contain nothing."""
+    rng = np.random.default_rng(1200 + d + nq + n_p)
+    lo, hi = _windows(rng, nq, d, grid=True)
+    flip = rng.random(nq) < 0.3                  # inverted in one dimension
+    k = rng.integers(0, d, nq)
+    lo[flip, k[flip]], hi[flip, k[flip]] = hi[flip, k[flip]], lo[flip, k[flip]] - 0.25
+    pts = _coords(rng, (n_p, d), grid=True)
+    _non_finite(rng, pts)
+    pts[rng.random(n_p) < 0.1] = np.nan          # whole NaN points, some valid
+    valid = (rng.random(n_p) < 0.7).astype(np.int32)
+    args = (lo, hi, pts, valid)
+    got = ops.window_count(*map(_t, args))
+    assert got.dtype == torch.int32 and got.shape == (nq,)
+    got = got.numpy()
+    np.testing.assert_array_equal(got, ref.window_count_ref(*map(_t, args)).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.window_count_ref(*map(jnp.asarray, args))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.window_count(lo, hi, pts, valid, interpret=True)))
+    assert not got[(lo > hi).any(axis=1)].any()
 
 
 @pytest.mark.parametrize("plane", [1, 7, 1000])
