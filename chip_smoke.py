@@ -59,12 +59,16 @@ Phases (any failure exits non-zero; nothing is caught):
    bit against its plain PyTorch version on the card; both are timed with
    CUDA events, ``pairwise_dist2`` beside ``torch.cdist``, and each
    smallest call also by its device time under ``torch.profiler``.
-   The same comparison runs at d = 5, where ``window_count_tiles`` and
-   ``partition_assign`` are timed too.  Each phase also counts its
-   launches by shape (``launch_shapes``).
+   The same comparison runs at d = 5, where the four redesigned kernels
+   (``window_count_tiles``, ``partition_assign``, ``box_hits``,
+   ``pair_window_ids``) are timed too, each smallest call of the last two
+   by its device time.  Each phase also counts its launches by shape
+   (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
-per export, fused and first-generation, and of the retrieval ``knn``,
+per export, fused and first-generation, of the fused window batch's
+frontier alone (``box_hits`` and the mask operations around it), and of
+the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
 share, time by kernel name).  The line before the last is one JSON
 object listing the kernels; the last line is ``{"ok": true, "device":
@@ -140,8 +144,8 @@ LARGEST = ("box_hits", "window_mask_gathered") + RETRIEVAL
 # timed by its device time: the launches a per-launch table leaves out
 SMALLEST = ("partition_assign", "box_hits", "pair_window_ids", "leaf_mindist",
             "pair_dist2")
-# timed at d = 5 as well (the two kernels with a redesign to compare)
-TIMED_D5 = ("window_count_tiles", "partition_assign")
+# timed at d = 5 as well (the kernels with a redesign to compare)
+TIMED_D5 = ("window_count_tiles", "partition_assign", "box_hits", "pair_window_ids")
 
 
 def log(*a) -> None:
@@ -363,6 +367,7 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
         out["profile"] = {
             name: profile_batches({
                 "window": lambda: rt.window_query_batch_torch(dv, los, his, fused=True),
+                "frontier": lambda: _frontier_count(dv, qlo, qhi),
                 "knn": lambda: rt.knn_query_batch_torch(dv, qs, k, fused=True)}, torch)
             for name, dv in (("f32", devs[False]), ("bf16", devs[True]))
         }

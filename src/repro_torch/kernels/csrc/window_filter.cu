@@ -6,27 +6,54 @@
 //   d dimensions, for one level block of node bounds (f32, or bf16 rounded
 //   outward) against the whole window batch.
 //   Bound on the H100: memory bytes, n*d*2*(4 or 2) + nq*d*8 + n*nq*4; the
-//   (n, nq) int32 output dominates.  The work is d compares per element,
-//   far below the card's compute rate.  Design: a 2-D grid of (64-box,
-//   32-window) tiles; the window tile's bounds sit in shared memory laid
-//   out [dim][window] so a warp reads them without bank conflicts, a warp
-//   shares one box (a broadcast load), and the 32 lanes of a warp write 32
-//   neighbouring output words (one 128-byte transaction).  bf16 bounds are
-//   widened in registers by a 16-bit shift, which is exact.  Ragged edges
-//   are masked here, so no inverted-box padding is needed.
+//   (n, nq) int32 output dominates (120 MB for 29,423 leaves x 1024
+//   windows, more than the 50 MB L2).  The work is 2d compares per word,
+//   far below the card's compute rate, so the kernel is a store stream and
+//   its design keeps the stores coming.  Each thread owns R = 4 windows
+//   and holds their bounds in registers for its whole life (d = 2 and
+//   d = 5, the widths of the port's cells, are template arguments).  A
+//   block's 256 threads cover a tile of up to 1024 windows (gridDim.y
+//   tiles larger batches; a narrower batch puts several box lanes in one
+//   block) and walk a contiguous run of boxes: the run is staged into
+//   shared memory with one coalesced load per stage (bf16 widened there by
+//   a 16-bit shift, which is exact), and then each box is read with
+//   broadcast vector loads, tested against the four windows and written,
+//   with no barrier inside the loop.  The grid
+//   holds the blocks that fit on the card at once (at least BH_MIN_RUN
+//   boxes each), so each thread issues tens of stores; a launch of a few
+//   boxes against one tile of windows (the root level) splits the tile
+//   into 8 of 128, so that one block's window loads do not hold it up.
+//   Where nq % 4 == 0 a thread's windows are neighbours, loaded with
+//   16-byte loads and written with one 16-byte store (a warp: 512
+//   contiguous bytes of a row); a ragged nq would misalign every row after
+//   the first, so there the windows of a thread lie WG apart and each is a
+//   4-byte store, coalesced across the warp.
+//   Stores are streaming (st.global.cs): the mask is read once, by the
+//   next operation.  Comparisons are the plain version's float compares
+//   (NaN fails, -0 equals +0).  Any other d reads the windows' bounds
+//   through L1 for each box: correct, not fast.
 //
 // pair_window_ids
 //   Replaces kernels/window_filter.py:pair_window_ids: for each (window,
 //   leaf) pair, the exact f32 re-check of the leaf box, slot validity
 //   (slot < leaf count, pair_valid > 0) and point containment; writes the
 //   slot's dataset row or -1 and the pair's count.
-//   Bound on the H100: memory bytes, P*S*(4d + 4 + 4) (points and ids
-//   read, ids-or-minus-one written).  Design: one block per pair on
-//   gridDim.x (P may exceed 65535); the block loads its own indices (the
-//   TPU kernel's scalar prefetch), one thread re-checks the leaf box, the
-//   threads stride over the S slots, and the count is reduced with warp
-//   shuffles and then shared memory.  A pair whose box re-check fails
-//   reads no points at all.
+//   Bound on the H100: memory bytes, P*S*4 written, the live leaves'
+//   points and the inside slots' ids read.  A block per pair spent its
+//   life on three dependent round trips and two barriers before its first
+//   point; the design takes that chain out.  Each warp owns one pair (8
+//   pairs per block on gridDim.x, so P may pass 65535).  Every lane reads
+//   the pair's indices (one broadcast word each), then, in one round,
+//   the window's bounds (registers at d = 2 and 5), the leaf's count and,
+//   in lanes k < d, one dimension of the leaf box, whose re-check is
+//   combined with __all_sync.  The scan takes 4 chunks of 32 slots per
+//   step: all their points are loaded first (scalar loads: leaf li's
+//   block starts at li * S * d floats, so its alignment depends on li),
+//   then the ids of the slots inside, then the 4 stores; the count is
+//   __popc(__ballot_sync) summed per chunk.  No __syncthreads, no
+//   shared-memory reduction.  A padding pair, an index
+//   outside its table or a failed re-check reads no point and writes its
+//   row of -1 and a count of 0.
 //
 // window_count_gathered
 //   Replaces kernels/window_filter.py:window_count_gathered, the scan of
@@ -99,11 +126,15 @@ namespace {
 
 constexpr int MAX_D = 64;        // the wrappers reject wider points
 
-constexpr int BH_QT = 32;        // windows per block: one warp's lanes
-constexpr int BH_WARPS = 8;      // warps per block
-constexpr int BH_NT = 64;        // boxes per block
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-constexpr int PAIR_THREADS = 128;
+constexpr int BH_THREADS = 256;        // threads per block
+constexpr int BH_R = 4;                // windows per thread
+constexpr int BH_STAGE_FLOATS = 4096;  // staged box bounds per block (16 KB)
+constexpr int BH_MIN_RUN = 8;          // boxes per box lane and block, at least
+
+constexpr int PAIR_WARPS = 8;          // pairs per block: one per warp
+constexpr int PAIR_UNROLL = 4;         // 32-slot chunks per step of the scan
 
 constexpr int WCG_THREADS = 256;
 
@@ -119,48 +150,139 @@ __device__ __forceinline__ float widen(uint16_t x) {
   return __uint_as_float(static_cast<uint32_t>(x) << 16);
 }
 
-template <typename B>
-__global__ void __launch_bounds__(BH_QT * BH_WARPS)
+// The stride of one staged box, lo then hi (2d floats), rounded up to a
+// multiple of 4 so that a box is read with 16-byte loads.
+__host__ __device__ constexpr int bh_stride(int d) { return (2 * d + 3) / 4 * 4; }
+
+// D > 0: the dimension, the thread's R windows' bounds in registers;
+// D == 0: any d, the windows' bounds read through L1 for each box.  VEC:
+// a thread's windows are neighbours, loaded with 16-byte loads and written
+// with one 16-byte store (nq % 4 == 0; out, qlo and qhi 16-byte aligned);
+// else they lie WG = 2^wg_log2 apart and each is loaded and written on its
+// own.  Thread t holds window group t % WG of the block's tile (gridDim.y)
+// and box lane t / WG; block x walks boxes [n x / gridDim.x,
+// n (x + 1) / gridDim.x).
+template <int D, typename B, bool VEC>
+__global__ void __launch_bounds__(BH_THREADS)
 box_hits_kernel(const B* __restrict__ lo, const B* __restrict__ hi,
                 const float* __restrict__ qlo, const float* __restrict__ qhi,
-                int32_t* __restrict__ out, int n, int nq, int d) {
-  extern __shared__ float smem[];
-  float* sqlo = smem;               // [d][BH_QT]
-  float* sqhi = smem + d * BH_QT;   // [d][BH_QT]
-  const int q0 = blockIdx.y * BH_QT;
-  const int b0 = blockIdx.x * BH_NT;
-  const int tid = threadIdx.y * BH_QT + threadIdx.x;
-  for (int i = tid; i < d * BH_QT; i += BH_QT * BH_WARPS) {
-    const int qq = i / d;           // row-major (nq, d) source: coalesced
-    const int k = i - qq * d;
-    const int q = q0 + qq;
-    float vlo = 0.f, vhi = 0.f;
-    if (q < nq) {
-      vlo = qlo[static_cast<int64_t>(q) * d + k];
-      vhi = qhi[static_cast<int64_t>(q) * d + k];
+                int32_t* __restrict__ out, int n, int nq, int dd, int wg_log2) {
+  constexpr int RD = D > 0 ? D : 1;
+  constexpr int BP = bh_stride(RD);
+  const int d = D > 0 ? D : dd;
+  const int bp = D > 0 ? BP : bh_stride(dd);
+  const int stage = BH_STAGE_FLOATS / bp;           // boxes per stage
+  __shared__ __align__(16) float sbox[BH_STAGE_FLOATS];
+  const int g = threadIdx.x & ((1 << wg_log2) - 1);
+  const int lane_b = threadIdx.x >> wg_log2;
+  const int n_lanes = BH_THREADS >> wg_log2;
+  const int tile0 = blockIdx.y * (BH_R << wg_log2);
+  const float qnan = __int_as_float(0x7fc00000);
+
+  int w[BH_R];
+  float wl[BH_R][RD], wh[BH_R][RD];                 // D > 0 only
+#pragma unroll
+  for (int c = 0; c < BH_R; ++c)
+    w[c] = VEC ? tile0 + BH_R * g + c : tile0 + g + (c << wg_log2);
+  if constexpr (VEC && D > 0) {
+    // the 4 neighbouring windows' bounds are 4D floats from a 16-byte
+    // boundary: D vector loads per side instead of 4D scalar ones
+    const bool live = w[0] < nq;                    // all four or none
+    const int64_t row = static_cast<int64_t>(w[0]) * D;
+    const float4* pl = reinterpret_cast<const float4*>(qlo + row);
+    const float4* ph = reinterpret_cast<const float4*>(qhi + row);
+    const float4 none = make_float4(qnan, qnan, qnan, qnan);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float4 a = live ? __ldg(pl + i) : none;
+      const float4 b = live ? __ldg(ph + i) : none;
+      const float la[4] = {a.x, a.y, a.z, a.w}, hb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        wl[(4 * i + e) / D][(4 * i + e) % D] = la[e];
+        wh[(4 * i + e) / D][(4 * i + e) % D] = hb[e];
+      }
     }
-    sqlo[k * BH_QT + qq] = vlo;
-    sqhi[k * BH_QT + qq] = vhi;
+  } else {
+#pragma unroll
+    for (int c = 0; c < BH_R; ++c) {
+#pragma unroll
+      for (int k = 0; k < RD; ++k) {
+        const bool live = D > 0 && w[c] < nq;       // a dead window is never stored
+        wl[c][k] = live ? __ldg(qlo + static_cast<int64_t>(w[c]) * d + k) : qnan;
+        wh[c][k] = live ? __ldg(qhi + static_cast<int64_t>(w[c]) * d + k) : qnan;
+      }
+    }
   }
-  __syncthreads();
-  const int q = q0 + threadIdx.x;
-  if (q >= nq) return;
-  for (int r = threadIdx.y; r < BH_NT; r += BH_WARPS) {
-    const int b = b0 + r;
-    if (b >= n) break;
-    const int64_t row = static_cast<int64_t>(b) * d;
-    bool hit = true;
-    for (int k = 0; k < d; ++k) {
-      const float l = widen(lo[row + k]);
-      const float h = widen(hi[row + k]);
-      hit = hit & (l <= sqhi[k * BH_QT + threadIdx.x]) &
-            (h >= sqlo[k * BH_QT + threadIdx.x]);
+  bool any_live = false;
+#pragma unroll
+  for (int c = 0; c < BH_R; ++c) any_live |= w[c] < nq;
+
+  const int64_t begin = static_cast<int64_t>(n) * blockIdx.x / gridDim.x;
+  const int64_t end = static_cast<int64_t>(n) * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t s0 = begin; s0 < end; s0 += stage) {
+    const int n_s = static_cast<int>(end - s0 < stage ? end - s0 : stage);
+    // one coalesced pass over the stage's lo rows and hi rows, widened
+    const B* ls = lo + s0 * d;
+    const B* hs = hi + s0 * d;
+    for (int f = threadIdx.x; f < n_s * d; f += BH_THREADS) {
+      const int b = f / d;
+      const int k = f - b * d;
+      sbox[b * bp + k] = widen(ls[f]);
+      sbox[b * bp + d + k] = widen(hs[f]);
     }
-    out[static_cast<int64_t>(b) * nq + q] = hit ? 1 : 0;
+    __syncthreads();
+    if (any_live) {
+#pragma unroll 4
+      for (int b = lane_b; b < n_s; b += n_lanes) {
+        const float* bx = sbox + b * bp;
+        bool hit[BH_R];
+        if constexpr (D > 0) {
+          float v[BP];                               // lo[0..D), hi[D..2D)
+#pragma unroll
+          for (int i = 0; i < BP; i += 4) {
+            const float4 q = *reinterpret_cast<const float4*>(bx + i);
+            v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+          }
+#pragma unroll
+          for (int c = 0; c < BH_R; ++c) {
+            bool h = true;
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+              h = h & (v[k] <= wh[c][k]) & (v[D + k] >= wl[c][k]);
+            hit[c] = h;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < BH_R; ++c) {
+            const int64_t row = static_cast<int64_t>(w[c] < nq ? w[c] : nq - 1) * d;
+            bool h = true;
+            for (int k = 0; k < d; ++k)
+              h = h & (bx[k] <= __ldg(qhi + row + k)) & (bx[d + k] >= __ldg(qlo + row + k));
+            hit[c] = h;
+          }
+        }
+        int32_t* orow = out + (s0 + b) * nq;
+        if constexpr (VEC) {
+          if (w[0] < nq)
+            __stcs(reinterpret_cast<int4*>(orow + w[0]),
+                   make_int4(hit[0], hit[1], hit[2], hit[3]));
+        } else {
+#pragma unroll
+          for (int c = 0; c < BH_R; ++c)
+            if (w[c] < nq) __stcs(orow + w[c], static_cast<int>(hit[c]));
+        }
+      }
+    }
+    __syncthreads();                                 // the stage is read: refill it
   }
 }
 
-__global__ void __launch_bounds__(PAIR_THREADS)
+// D > 0: the dimension, the window's bounds in registers; D == 0: any d,
+// the window's bounds in the warp's slice of shared memory.  Warp w of
+// block x scans pair x * PAIR_WARPS + w.
+template <int D>
+__global__ void __launch_bounds__(PAIR_WARPS * 32)
 pair_window_ids_kernel(const float* __restrict__ qlo,
                        const float* __restrict__ qhi,
                        const float* __restrict__ leaf_lo,
@@ -173,63 +295,107 @@ pair_window_ids_kernel(const float* __restrict__ qlo,
                        const int32_t* __restrict__ pair_valid,
                        int32_t* __restrict__ out_ids,
                        int32_t* __restrict__ out_counts,
-                       int nq, int n_leaves, int s, int d) {
-  __shared__ float sql[MAX_D];
-  __shared__ float sqh[MAX_D];
-  __shared__ int s_live;            // slots to test: 0 when the pair is out
-  __shared__ int warp_sums[PAIR_THREADS / 32];
-  const int p = blockIdx.x;
-  const int qi = q_idx[p];
-  const int li = leaf_idx[p];
+                       int n_pairs, int nq, int n_leaves, int s, int dd) {
+  constexpr int RD = D > 0 ? D : 1;
+  const int d = D > 0 ? D : dd;
+  __shared__ float swin[D > 0 ? 1 : PAIR_WARPS][2][D > 0 ? 1 : MAX_D];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * PAIR_WARPS + warp;
+  if (p >= n_pairs) return;                         // the whole warp leaves
+  const int qi = __ldg(q_idx + p);
+  const int li = __ldg(leaf_idx + p);
   // an index outside its table cannot come from the engine; such a pair is
   // treated as padding instead of being read out of bounds
-  const bool in_range = qi >= 0 && qi < nq && li >= 0 && li < n_leaves;
-  if (in_range) {
-    for (int k = threadIdx.x; k < d; k += blockDim.x) {
-      sql[k] = qlo[static_cast<int64_t>(qi) * d + k];
-      sqh[k] = qhi[static_cast<int64_t>(qi) * d + k];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    bool ok = in_range && pair_valid[p] > 0;
-    if (ok) {                       // exact f32 re-check of the leaf box
-      const int64_t row = static_cast<int64_t>(li) * d;
-      for (int k = 0; k < d; ++k)
-        ok = ok & (leaf_lo[row + k] <= sqh[k]) & (leaf_hi[row + k] >= sql[k]);
-    }
-    s_live = ok ? min(leaf_counts[li], s) : 0;
-  }
-  __syncthreads();
-  const int live = s_live;
-  int32_t* orow = out_ids + static_cast<int64_t>(p) * s;
-  int local = 0;
-  for (int j = threadIdx.x; j < s; j += blockDim.x) {
-    int32_t id = -1;
-    if (j < live) {
-      const int64_t slot = static_cast<int64_t>(li) * s + j;
-      const float* pt = leaf_pts + slot * d;
-      bool in = true;
-      for (int k = 0; k < d; ++k) {
-        const float v = pt[k];
-        in = in & (v >= sql[k]) & (v <= sqh[k]);
-      }
-      if (in) {
-        id = leaf_ids[slot];
-        ++local;
+  const bool live_pair = __ldg(pair_valid + p) > 0 && qi >= 0 && qi < nq &&
+                         li >= 0 && li < n_leaves;
+  float wl[RD], wh[RD];
+  int cnt = 0;
+  bool box = true;
+#pragma unroll
+  for (int k = 0; k < RD; ++k) wl[k] = wh[k] = 0.f;
+  if (live_pair) {                                   // warp-uniform
+    const float* ql = qlo + static_cast<int64_t>(qi) * d;
+    const float* qh = qhi + static_cast<int64_t>(qi) * d;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        wl[k] = __ldg(ql + k);
+        wh[k] = __ldg(qh + k);
       }
     }
-    orow[j] = id;
+    cnt = __ldg(leaf_counts + li);
+    // exact f32 re-check of the leaf box: lane k tests dimension k
+    const int64_t row = static_cast<int64_t>(li) * d;
+    for (int k = lane; k < d; k += 32) {
+      const float a = __ldg(ql + k);
+      const float b = __ldg(qh + k);
+      box = box & (__ldg(leaf_lo + row + k) <= b) & (__ldg(leaf_hi + row + k) >= a);
+      if constexpr (D == 0) {
+        swin[warp][0][k] = a;
+        swin[warp][1][k] = b;
+      }
+    }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    local += __shfl_down_sync(0xffffffffu, local, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int w = 0; w < PAIR_THREADS / 32; ++w) t += warp_sums[w];
-    out_counts[p] = t;
+  const bool ok = __all_sync(FULL_MASK, box) && live_pair;
+  if constexpr (D == 0) __syncwarp();
+  const int live = ok ? (cnt < s ? cnt : s) : 0;    // slots to test
+
+  int32_t* orow = out_ids + p * s;
+  const int64_t slot0 = static_cast<int64_t>(ok ? li : 0) * s;
+  const float* pts = leaf_pts + slot0 * d;
+  const int32_t* ids = leaf_ids + slot0;
+  int total = 0;
+  for (int c0 = 0; c0 < s; c0 += 32 * PAIR_UNROLL) {   // warp-uniform trips
+    bool in[PAIR_UNROLL];
+    if constexpr (D > 0) {
+      float x[PAIR_UNROLL][D];
+#pragma unroll
+      for (int u = 0; u < PAIR_UNROLL; ++u) {        // every point first
+        const int j = c0 + 32 * u + lane;
+        in[u] = j < live;
+#pragma unroll
+        for (int k = 0; k < D; ++k) x[u][k] = 0.f;
+        if (in[u]) {
+          const float* pt = pts + static_cast<int64_t>(j) * D;
+#pragma unroll
+          for (int k = 0; k < D; ++k) x[u][k] = __ldg(pt + k);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < PAIR_UNROLL; ++u) {
+        bool h = in[u];
+#pragma unroll
+        for (int k = 0; k < D; ++k) h = h & (x[u][k] >= wl[k]) & (x[u][k] <= wh[k]);
+        in[u] = h;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < PAIR_UNROLL; ++u) {
+        const int j = c0 + 32 * u + lane;
+        bool h = j < live;
+        if (h) {
+          const float* pt = pts + static_cast<int64_t>(j) * d;
+          for (int k = 0; k < d; ++k) {
+            const float v = __ldg(pt + k);
+            h = h & (v >= swin[warp][0][k]) & (v <= swin[warp][1][k]);
+          }
+        }
+        in[u] = h;
+      }
+    }
+    int32_t id[PAIR_UNROLL];
+#pragma unroll
+    for (int u = 0; u < PAIR_UNROLL; ++u)            // then the inside slots' ids
+      id[u] = in[u] ? __ldg(ids + c0 + 32 * u + lane) : -1;
+#pragma unroll
+    for (int u = 0; u < PAIR_UNROLL; ++u) {
+      const int j = c0 + 32 * u + lane;
+      if (j < s) orow[j] = id[u];
+      total += __popc(__ballot_sync(FULL_MASK, in[u]));
+    }
   }
+  if (lane == 0) out_counts[p] = total;
 }
 
 __global__ void __launch_bounds__(WCG_THREADS)
@@ -559,28 +725,95 @@ cudaError_t launch_count_tiles(const float* lo, const float* hi,
   return cudaGetLastError();
 }
 
+template <int D, typename B, bool VEC>
+cudaError_t launch_box_hits(const B* lo, const B* hi, const float* qlo,
+                            const float* qhi, int32_t* out, int n, int nq,
+                            int d, int wg_log2, cudaStream_t st) {
+  static int per_sm = 0;              // resident blocks per SM, found once
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess && per_sm == 0)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, box_hits_kernel<D, B, VEC>, BH_THREADS, 0);
+  if (rc != cudaSuccess) return rc;
+  const int64_t tile = BH_R << wg_log2;
+  const int64_t gy = (nq + tile - 1) / tile;
+  // the blocks that fit on the card at once, shared among the window
+  // tiles, each with at least BH_MIN_RUN boxes per box lane
+  const int64_t run = static_cast<int64_t>(BH_MIN_RUN) * (BH_THREADS >> wg_log2);
+  int64_t gx = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) / gy;
+  gx = gx < (n + run - 1) / run ? gx : (n + run - 1) / run;
+  gx = gx < 1 ? 1 : gx;
+  box_hits_kernel<D, B, VEC><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                               BH_THREADS, 0, st>>>(lo, hi, qlo, qhi, out, n, nq, d,
+                                                    wg_log2);
+  return cudaGetLastError();
+}
+
+template <typename B>
+cudaError_t box_hits_dispatch(const B* lo, const B* hi, const float* qlo,
+                              const float* qhi, int32_t* out, int n, int nq,
+                              int d, int wg_log2, bool vec, cudaStream_t st) {
+#define BH_CASE(DD)                                                            \
+  return vec ? launch_box_hits<DD, B, true>(lo, hi, qlo, qhi, out, n, nq, d,   \
+                                            wg_log2, st)                       \
+             : launch_box_hits<DD, B, false>(lo, hi, qlo, qhi, out, n, nq, d,  \
+                                             wg_log2, st)
+  switch (d) {                      // the widths of the port's cells
+    case 2: BH_CASE(2);
+    case 5: BH_CASE(5);
+    default: BH_CASE(0);
+  }
+#undef BH_CASE
+}
+
+template <int D>
+void launch_pair_window_ids(const float* qlo, const float* qhi,
+                            const float* leaf_lo, const float* leaf_hi,
+                            const float* leaf_pts, const int32_t* leaf_ids,
+                            const int32_t* leaf_counts, const int32_t* q_idx,
+                            const int32_t* leaf_idx, const int32_t* pair_valid,
+                            int32_t* out_ids, int32_t* out_counts, int n_pairs,
+                            int nq, int n_leaves, int s, int d,
+                            cudaStream_t st) {
+  const int64_t blocks = (static_cast<int64_t>(n_pairs) + PAIR_WARPS - 1) / PAIR_WARPS;
+  pair_window_ids_kernel<D><<<static_cast<unsigned>(blocks), PAIR_WARPS * 32, 0,
+                              st>>>(qlo, qhi, leaf_lo, leaf_hi, leaf_pts, leaf_ids,
+                                    leaf_counts, q_idx, leaf_idx, pair_valid,
+                                    out_ids, out_counts, n_pairs, nq, n_leaves, s, d);
+}
+
 }  // namespace
 
 extern "C" int box_hits_launch(const void* lo, const void* hi,
                                const void* qlo, const void* qhi, void* out,
                                int bf16, int n, int nq, int d, void* stream) {
   if (n > 0 && nq > 0) {
-    const dim3 block(BH_QT, BH_WARPS);
-    const dim3 grid((n + BH_NT - 1) / BH_NT, (nq + BH_QT - 1) / BH_QT);
-    const size_t shm = 2 * static_cast<size_t>(d) * BH_QT * sizeof(float);
+    // window groups per tile: the power of two whose 4 windows each cover
+    // nq, at most one per thread of the block
+    int wg_log2 = 0;
+    while ((BH_R << wg_log2) < nq && (1 << wg_log2) < BH_THREADS) ++wg_log2;
+    // a grid of one block (a few boxes, the root level, and one tile of
+    // windows) spreads its windows over tiles of 128 instead, one block
+    // each, so that 8 SMs share the window loads that would hold up one
+    if (n <= BH_MIN_RUN && nq <= BH_R * BH_THREADS && wg_log2 > 5) wg_log2 = 5;
+    const bool vec = nq % BH_R == 0 && (reinterpret_cast<uintptr_t>(out) |
+                                         reinterpret_cast<uintptr_t>(qlo) |
+                                         reinterpret_cast<uintptr_t>(qhi)) % 16 == 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* ql = static_cast<const float*>(qlo);
     const float* qh = static_cast<const float*>(qhi);
     int32_t* o = static_cast<int32_t*>(out);
-    if (bf16) {
-      box_hits_kernel<uint16_t><<<grid, block, shm, st>>>(
-          static_cast<const uint16_t*>(lo), static_cast<const uint16_t*>(hi),
-          ql, qh, o, n, nq, d);
-    } else {
-      box_hits_kernel<float><<<grid, block, shm, st>>>(
-          static_cast<const float*>(lo), static_cast<const float*>(hi),
-          ql, qh, o, n, nq, d);
-    }
+    const cudaError_t rc =
+        bf16 ? box_hits_dispatch(static_cast<const uint16_t*>(lo),
+                                 static_cast<const uint16_t*>(hi), ql, qh, o, n, nq, d,
+                                 wg_log2, vec, st)
+             : box_hits_dispatch(static_cast<const float*>(lo),
+                                 static_cast<const float*>(hi), ql, qh, o, n, nq, d,
+                                 wg_log2, vec, st);
+    return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -592,18 +825,24 @@ extern "C" int pair_window_ids_launch(
     void* out_ids, void* out_counts, int n_pairs, int nq, int n_leaves,
     int s, int d, void* stream) {
   if (n_pairs > 0) {
-    pair_window_ids_kernel<<<n_pairs, PAIR_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(qlo), static_cast<const float*>(qhi),
-        static_cast<const float*>(leaf_lo), static_cast<const float*>(leaf_hi),
-        static_cast<const float*>(leaf_pts),
-        static_cast<const int32_t*>(leaf_ids),
-        static_cast<const int32_t*>(leaf_counts),
-        static_cast<const int32_t*>(q_idx),
-        static_cast<const int32_t*>(leaf_idx),
-        static_cast<const int32_t*>(pair_valid),
-        static_cast<int32_t*>(out_ids), static_cast<int32_t*>(out_counts), nq,
-        n_leaves, s, d);
+#define PWI(DD)                                                                \
+  launch_pair_window_ids<DD>(                                                  \
+      static_cast<const float*>(qlo), static_cast<const float*>(qhi),          \
+      static_cast<const float*>(leaf_lo), static_cast<const float*>(leaf_hi),  \
+      static_cast<const float*>(leaf_pts),                                     \
+      static_cast<const int32_t*>(leaf_ids),                                   \
+      static_cast<const int32_t*>(leaf_counts),                                \
+      static_cast<const int32_t*>(q_idx),                                      \
+      static_cast<const int32_t*>(leaf_idx),                                   \
+      static_cast<const int32_t*>(pair_valid), static_cast<int32_t*>(out_ids), \
+      static_cast<int32_t*>(out_counts), n_pairs, nq, n_leaves, s, d,          \
+      static_cast<cudaStream_t>(stream))
+    switch (d) {                    // the widths of the port's cells
+      case 2: PWI(2); break;
+      case 5: PWI(5); break;
+      default: PWI(0); break;
+    }
+#undef PWI
   }
   return static_cast<int>(cudaGetLastError());
 }

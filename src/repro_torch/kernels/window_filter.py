@@ -21,6 +21,11 @@ _BOUNDS = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 
 
+# windows per block tile of box_hits (256 threads of 4 windows each), one
+# tile per block of gridDim.y
+_BH_TILE = 1024
+
+
 @functools.cache
 def _fn(symbol: str, n_ptrs: int, n_ints: int):
     return build.bind(build.library("window_filter"), symbol, n_ptrs, n_ints)
@@ -36,8 +41,8 @@ def box_hits(lo, hi, qlo, qhi) -> torch.Tensor:
     launches.check(qlo, "qlo", _F32, (nq, d))
     launches.check(qhi, "qhi", _F32, (nq, d))
     launches.same_device(lo, hi, qlo, qhi)
-    if -(-nq // 32) > 65535:
-        raise ValueError(f"box_hits takes at most {65535 * 32} windows, got {nq}")
+    if -(-nq // _BH_TILE) > 65535:
+        raise ValueError(f"box_hits takes at most {65535 * _BH_TILE} windows, got {nq}")
     launches.check_extents(n=n)
     out = torch.empty((n, nq), dtype=torch.int32, device=lo.device)
     if out.numel() == 0:  # nothing to launch
@@ -75,7 +80,7 @@ def pair_window_ids(qlo, qhi, leaf_lo, leaf_hi, leaf_pts, leaf_ids,
     launches.check_extents(P=p, nq=nq, L=n_l)
     ids_or = torch.empty((p, s), dtype=torch.int32, device=qlo.device)
     counts = torch.empty((p,), dtype=torch.int32, device=qlo.device)
-    if ids_or.numel() == 0:  # nothing to launch
+    if p == 0:  # nothing to launch (S = 0 still launches: the counts are 0)
         return ids_or, counts
     rc = _fn("pair_window_ids_launch", 12, 5)(
         qlo.data_ptr(), qhi.data_ptr(), leaf_lo.data_ptr(), leaf_hi.data_ptr(),

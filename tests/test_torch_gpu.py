@@ -412,3 +412,140 @@ def test_partition_assign_both_paths_match_plain(cuda, d, levels, monkeypatch):
         torch.cuda.synchronize()
         assert launches.counts()["partition_assign"] == 1
         assert torch.equal(got, want), forced
+
+
+def _bh_stage(d):
+    """Boxes per shared-memory stage of ``box_hits`` (``csrc/window_filter.cu``:
+    4096 floats, one box 2d floats rounded up to a multiple of 4)."""
+    return 4096 // ((2 * d + 3) // 4 * 4)
+
+
+def _bf16_patterns(x):
+    """The top 16 bits of f32 ``x`` as bf16: NaN, +-inf and -0 stay so."""
+    u = (np.ascontiguousarray(x).view(np.uint32) >> 16).astype(np.uint16)
+    return torch.from_numpy(u.view(np.int16)).view(torch.bfloat16)
+
+
+def _with_edge_values(rng, x):
+    """A copy of ``x`` with about one value in 20 set to NaN, +-inf or -0."""
+    x = x.copy()
+    flat = x.reshape(-1)
+    pick = rng.choice(flat.size, size=max(1, flat.size // 20), replace=False)
+    flat[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf, -0.0], np.float32), len(pick))
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 5, 8, 12])
+@pytest.mark.parametrize("nq", [1, 3, 4, 33, 1023, 1024, 1025])
+def test_box_hits_edge_shapes_match_plain(cuda, d, nq):
+    """The redesigned box test bit for bit against its plain version: window
+    counts that are not a multiple of 4 (the 4-byte store path) and that
+    are (one 16-byte store per box), more than one window tile; one box,
+    the 204 of an upper level, a shared-memory stage of boxes and one
+    either side, and a leaf level of 29,423 (several stages per block
+    where a narrow batch gives a block many box lanes); f32 and bf16
+    bounds with NaN, +-inf and -0 on both sides, and windows with lo >
+    hi.  d = 12 takes the path that reads the windows through L1."""
+    rng = np.random.default_rng(90 + 11 * d + nq)
+    qlo = (rng.integers(0, 48, (nq, d)) / 64).astype(np.float32)
+    qhi = qlo + (rng.integers(0, 24, (nq, d)) / 64).astype(np.float32)
+    flip = np.flatnonzero(rng.random(nq) < 0.2)
+    qlo[flip, 0], qhi[flip, 0] = qhi[flip, 0] + np.float32(1 / 64), qlo[flip, 0]
+    qlo, qhi = _with_edge_values(rng, qlo), _with_edge_values(rng, qhi)
+    ql, qh = torch.from_numpy(qlo).to(cuda), torch.from_numpy(qhi).to(cuda)
+    stage = _bh_stage(d)
+    for n in (1, 204, stage - 1, stage, stage + 1, 29_423):
+        lo = (rng.integers(0, 48, (n, d)) / 64).astype(np.float32)
+        hi = lo + (rng.integers(0, 16, (n, d)) / 64).astype(np.float32)
+        lo, hi = _with_edge_values(rng, lo), _with_edge_values(rng, hi)
+        for bounds in ((torch.from_numpy(lo), torch.from_numpy(hi)),
+                       (_bf16_patterns(lo), _bf16_patterns(hi))):
+            blo, bhi = (b.to(cuda) for b in bounds)
+            got = window_filter.box_hits(blo, bhi, ql, qh)
+            want = ref.box_hits_tiled_ref(blo, bhi, ql, qh)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and got.shape == (n, nq)
+            assert torch.equal(got, want), (n, blo.dtype)
+
+
+def _pair_edge_inputs(rng, d, s, p, nq=50, n_l=40):
+    """Pairs over leaves drawn inside their boxes: leaf counts 0, S and
+    above S among random ones, padding pairs, boxes that miss their
+    window (the exact re-check fails), window 0 unbounded (it holds whole
+    leaves) and window 1 equal to leaf 1's box, NaN and +-inf points and
+    window bounds; the first pairs take each case."""
+    qlo = (rng.integers(0, 48, (nq, d)) / 64).astype(np.float32)
+    qhi = qlo + (rng.integers(0, 24, (nq, d)) / 64).astype(np.float32)
+    qlo, qhi = _with_edge_values(rng, qlo), _with_edge_values(rng, qhi)
+    llo = (rng.integers(0, 48, (n_l, d)) / 64).astype(np.float32)
+    lhi = llo + (rng.integers(0, 16, (n_l, d)) / 64).astype(np.float32)
+    qlo[0], qhi[0] = -np.inf, np.inf
+    qlo[1], qhi[1] = llo[1], lhi[1]
+    counts = rng.integers(0, s + 1, n_l).astype(np.int32)
+    counts[:4] = [0, s, s + 7, s]
+    off = (rng.integers(0, 16, (n_l, s, d)) / 64).astype(np.float32)
+    pts = llo[:, None, :] + np.minimum(off, (lhi - llo)[:, None, :])
+    pts = _with_non_finite(rng, pts)
+    ids = rng.permutation(n_l * s).reshape(n_l, s).astype(np.int32)
+    q_idx = rng.integers(0, nq, p).astype(np.int32)
+    leaf_idx = rng.integers(0, n_l, p).astype(np.int32)
+    pv = (rng.random(p) < 0.7).astype(np.int32)
+    head = min(p, 6)
+    q_idx[:head] = [0, 0, 1, 0, 0, 2][:head]
+    leaf_idx[:head] = [1, 2, 1, 0, 3, 3][:head]
+    pv[:head] = [1, 1, 1, 1, 0, 1][:head]
+    return qlo, qhi, llo, lhi, pts, ids, counts, q_idx, leaf_idx, pv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2, 4, 5, 12])
+@pytest.mark.parametrize("s", [1, 17, 170, 341])
+def test_pair_window_ids_edge_shapes_match_plain(cuda, d, s):
+    """The redesigned pair scan bit for bit against its plain version at
+    1, 1,024 and 70,000 pairs (past 65,535 blocks of the parent's grid);
+    at d = 2 also on a point table that is not 8-byte aligned (the kernel
+    assumes no alignment of a leaf block), and with indices outside their
+    tables, which the kernel treats as padding."""
+    rng = np.random.default_rng(120 + 13 * d + s)
+    for p in (1, 1024, 70_000):
+        args = [torch.from_numpy(a).to(cuda) for a in _pair_edge_inputs(rng, d, s, p)]
+        tables = [args]
+        if d == 2:
+            pts = args[4]
+            buf = torch.empty(pts.numel() + 1, dtype=torch.float32, device=cuda)
+            shifted = buf[1:].view(pts.shape)
+            shifted.copy_(pts)
+            tables.append(args[:4] + [shifted] + args[5:])
+        for a in tables:
+            got = window_filter.pair_window_ids(*a)
+            want = ref.pair_window_ids_ref(*a)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int32 and torch.equal(g, w), (p, a[4].data_ptr() % 16)
+        # the first pairs: window 0 (unbounded) over leaf 1 (S live slots)
+        # and leaf 2 (a count above S), leaf 1's own box over leaf 1, an
+        # empty leaf, a padding pair
+        pts = a[4].cpu().numpy()
+        counts = got[1].cpu().numpy()
+        assert counts[0] == (~np.isnan(pts[1]).any(axis=1)).sum()
+        if p >= 6:
+            assert counts[1] == (~np.isnan(pts[2]).any(axis=1)).sum()
+            assert counts[2] == np.isfinite(pts[1]).all(axis=1).sum()
+            assert counts[3] == 0 and counts[4] == 0
+    # indices outside their tables: padding, as the plain version reads them
+    # at (window 0, leaf 0) with pair_valid 0
+    a = list(args)
+    bad_q, bad_l = a[7].clone(), a[8].clone()
+    bad_q[::5], bad_l[1::7] = 50 + 3, -1
+    got = window_filter.pair_window_ids(*a[:7], bad_q, bad_l, a[9])
+    out = (bad_q >= 50) | (bad_l < 0)
+    want = ref.pair_window_ids_ref(*a[:7], torch.where(out, 0, bad_q),
+                                   torch.where(out, 0, bad_l), torch.where(out, 0, a[9]))
+    torch.cuda.synchronize()
+    assert out.any() and all(torch.equal(g, w) for g, w in zip(got, want))
+    if s == 1:   # no slots at all: every count 0
+        empty = window_filter.pair_window_ids(*a[:4], a[4][:, :0].contiguous(),
+                                              a[5][:, :0].contiguous(), *a[6:])
+        torch.cuda.synchronize()
+        assert empty[0].shape == (70_000, 0) and not empty[1].any()

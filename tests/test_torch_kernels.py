@@ -161,6 +161,88 @@ def test_pair_window_ids_invalid_pairs_are_empty():
     assert (gi[:2] == -1).all() and sorted(gi[2].tolist()) == sorted(ids[2].tolist())
 
 
+def _edge_values(rng, x):
+    """Set about one value in 20 of ``x`` to NaN, +-inf or -0 (in place)."""
+    flat = x.reshape(-1)
+    pick = rng.choice(flat.size, size=max(1, flat.size // 20), replace=False)
+    flat[pick] = rng.choice(np.array([np.nan, np.inf, -np.inf, -0.0], np.float32),
+                            len(pick))
+
+
+def _bf16_patterns(x):
+    """(torch bf16, jax bf16) of the top 16 bits of f32 ``x``: any pattern,
+    NaN, +-inf and -0 included, is a bf16 value that widens exactly."""
+    u = (np.ascontiguousarray(x).view(np.uint32) >> 16).astype(np.uint16)
+    return _t(u.view(np.int16)).view(torch.bfloat16), jnp.asarray(u.view(jnp.bfloat16))
+
+
+@pytest.mark.parametrize("d", [1, 2, 12])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,nq", [(1, 3), (204, 33), (30, 1025)])
+def test_box_hits_ref_edge_values_match_jax(d, bf16, n, nq):
+    """The box test's contract at the redesigned kernel's edges: window
+    counts that are not a multiple of 4 (its scalar store path), one box
+    (the root level), NaN, infinite and -0 bounds on both sides (a NaN
+    bound hits nothing), and windows with lo > hi."""
+    rng = np.random.default_rng(1300 + 7 * d + n + nq + bf16)
+    lo = _coords(rng, (n, d), grid=True)
+    hi = lo + _coords(rng, (n, d), grid=True) * np.float32(0.5)
+    qlo, qhi = _windows(rng, nq, d, grid=True)
+    flip = rng.random(nq) < 0.2
+    qlo[flip, 0], qhi[flip, 0] = qhi[flip, 0] + np.float32(1 / 64), qlo[flip, 0]
+    for x in (lo, hi, qlo, qhi):
+        _edge_values(rng, x)
+    if bf16:
+        (tlo, jlo), (thi, jhi) = _bf16_patterns(lo), _bf16_patterns(hi)
+    else:
+        (tlo, thi), (jlo, jhi) = (_t(lo), _t(hi)), (jnp.asarray(lo), jnp.asarray(hi))
+    got = ops.box_hits_tiled(tlo, thi, _t(qlo), _t(qhi))
+    assert got.dtype == torch.int32 and got.shape == (n, nq)
+    got = got.numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.box_hits_tiled_ref(jlo, jhi, qlo, qhi)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.box_hits_tiled(jlo, jhi, qlo, qhi, interpret=True)))
+    assert not got[np.isnan(lo).any(axis=1) | np.isnan(hi).any(axis=1)].any()
+    assert not got[:, np.isnan(qlo).any(axis=1) | np.isnan(qhi).any(axis=1)].any()
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+@pytest.mark.parametrize("s", [1, 170, 341])
+def test_pair_window_ids_ref_edge_shapes_match_jax(d, s):
+    """The pair scan's contract at the redesigned kernel's edges: leaf
+    counts of 0, S and above S, padding pairs, leaf boxes that fail the
+    exact re-check, a window that holds whole leaves, and NaN and
+    infinite coordinates in points and windows."""
+    rng = np.random.default_rng(1400 + d + s)
+    nq, n_l, p = 7, 9, 12
+    qlo, qhi = _windows(rng, nq, d, grid=True)
+    qlo[0], qhi[0] = -np.inf, np.inf                    # holds whole leaves
+    _edge_values(rng, qlo[1:])
+    llo, lhi = _boxes(rng, n_l, d, grid=True)
+    counts = rng.integers(0, s + 1, n_l).astype(np.int32)
+    counts[:3] = [0, s, s + 5]
+    pts = (llo[:, None, :] + _coords(rng, (n_l, s, d), grid=True) * np.float32(0.25))
+    _edge_values(rng, pts)
+    ids = rng.permutation(n_l * s).reshape(n_l, s).astype(np.int32)
+    q_idx = rng.integers(0, nq, p).astype(np.int32)
+    leaf_idx = rng.integers(0, n_l, p).astype(np.int32)
+    pv = (rng.random(p) < 0.8).astype(np.int32)
+    q_idx[:4], leaf_idx[:4], pv[:4] = 0, [0, 1, 2, 0], [1, 1, 1, 0]   # last: padding
+    args = (qlo, qhi, llo, lhi, pts.astype(np.float32), ids, counts, q_idx, leaf_idx, pv)
+    gi, gc = ops.pair_window_ids(*map(_t, args))
+    assert gi.shape == (p, s) and gc.dtype == torch.int32
+    for want_i, want_c in (jref.pair_window_ids_ref(*map(jnp.asarray, args)),
+                           jops.pair_window_ids(*map(jnp.asarray, args), interpret=True)):
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(want_c))
+    # window 0 holds leaf 1 and 2 whole: every live slot but the NaN points
+    for row, leaf in ((1, 1), (2, 2)):
+        live = min(int(counts[leaf]), s)
+        nan_pt = np.isnan(args[4][leaf, :live]).any(axis=1)
+        assert gc[row] == live - nan_pt.sum()
+    assert gc[0] == 0 and gc[3] == 0 and (gi[3] == -1).all()
+
+
 # --------------------------------------------------------------------------
 # kernel 4: leaf_mindist (the k-NN candidate ranking)
 # --------------------------------------------------------------------------
