@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught):
    The launch counts are zeroed just before and read just after; each of
    the path's four kernels must have launched.  The first 32 windows and the first 16 k-NN
    queries are held against a NumPy brute force over all points (equal id
-   sets; equal f32 distance sequences).
+   sets; equal f32 distance sequences), and two queries whose every squared
+   distance overflows f32 (a coordinate of 2e19, one of +inf) must answer
+   k distinct dataset rows at +inf on both exports and both engines.
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
    Phases 3u, 3c, 5 and 6 at d = 2 run right after phase 3, and 4u, 4c,
@@ -57,13 +59,12 @@ Phases (any failure exits non-zero; nothing is caught):
    small-n kernel where all points take the shared-table one; the other
    kernels of ``SMALLEST`` also at their smallest call) and held bit for
    bit against its plain PyTorch version on the card; both are timed with
-   CUDA events, ``pairwise_dist2`` beside ``torch.cdist``, and each
-   smallest call also by its device time under ``torch.profiler``.
-   The same comparison runs at d = 5, where the four redesigned kernels
-   (``window_count_tiles``, ``partition_assign``, ``box_hits``,
-   ``pair_window_ids``) are timed too, each smallest call of the last two
-   by its device time.  Each phase also counts its launches by shape
-   (``launch_shapes``).
+   CUDA events, ``pairwise_dist2`` beside ``torch.cdist``, and every timed
+   kernel call also by its device time under ``torch.profiler``, with
+   the L2 flushed before each call for the kernels of ``COLD_L2``.  The
+   same comparison runs at d = 5, where the six redesigned kernels
+   (``TIMED_D5``) are timed too.  Each phase also counts its launches by
+   shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of the fused window batch's
@@ -145,7 +146,26 @@ LARGEST = ("box_hits", "window_mask_gathered") + RETRIEVAL
 SMALLEST = ("partition_assign", "box_hits", "pair_window_ids", "leaf_mindist",
             "pair_dist2")
 # timed at d = 5 as well (the kernels with a redesign to compare)
-TIMED_D5 = ("window_count_tiles", "partition_assign", "box_hits", "pair_window_ids")
+TIMED_D5 = ("window_count_tiles", "partition_assign", "box_hits", "pair_window_ids",
+            "pair_dist2", "window_count_gathered")
+# timed with a cold L2: the main path reaches these after traffic larger
+# than the 50 MB L2 (pair_dist2 after the mindist plane and its top-k,
+# window_count_gathered after the 320 MB gather of its candidates' points)
+COLD_L2 = ("pair_dist2", "window_count_gathered")
+L2_FLUSH_BYTES = 128 << 20
+# traces that device_ms and device_trace take before they give up on a
+# whole one
+TRACE_TRIES = 4
+# torch.profiler drops the first device events of every trace once the
+# process has done enough CUDA work outside traces (on the H100: none in a
+# fresh process, 2-3 per trace after the main path, once more than 64;
+# waiting at the trace's ends does not help).  Each trace therefore opens
+# with LEAD_MARKS fills of a one-byte tensor (kernels named MARK_NAME, which
+# the port never launches) and closes with one; a trace whose first or last
+# device event is not a mark may have lost events of its own, and is taken
+# again with twice the lead.
+LEAD_MARKS = 64
+MARK_NAME = "FillFunctor<unsigned char>"
 
 
 def log(*a) -> None:
@@ -241,6 +261,26 @@ def check_knn(full, ids, d2, k) -> None:
     if m < n and want[m - 1] < want[m]:  # no tie at the k-th boundary
         if set(ids.tolist()) != set(part[:m].tolist()):
             raise AssertionError("k-NN ids differ from brute force")
+
+
+def check_overflow_knn(tag, pts32, devs, k, rt) -> None:
+    """Two queries whose every squared distance overflows f32 (a coordinate
+    of 2e19, and one of +inf), on both exports and both engines: each
+    answer must be k distinct dataset rows at +inf, never padding."""
+    far = np.full((2, pts32.shape[1]), 0.5, dtype=np.float32)
+    far[0, 0], far[1, 0] = 2e19, np.inf
+    with np.errstate(over="ignore"):
+        full = [brute_d2(pts32, q) for q in far]
+    for name, dv in (("f32", devs[False]), ("bf16", devs[True])):
+        for fused in (True, False):
+            ids, d2 = rt.knn_query_batch_torch(dv, far, k, fused=fused, return_dists=True)
+            for i in range(len(far)):
+                if (len(ids[i]) != k or (ids[i] < 0).any() or len(set(ids[i].tolist())) != k
+                        or not np.isinf(d2[i]).all() or not np.isinf(full[i][ids[i]]).all()):
+                    raise AssertionError(f"[{tag}] overflowing k-NN query {far[i]} ({name}, "
+                                         f"fused={fused}): ids {ids[i]}, d2 {d2[i]}")
+    log(f"[{tag}] overflowing k-NN queries answer {k} live rows at +inf on both exports "
+        f"and engines")
 
 
 # --------------------------------------------------------------------------
@@ -352,6 +392,7 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
         for name in ("f32", "bf16"):
             ids, d2 = batches[("knn", name)]
             check_knn(full, ids[i], d2[i], k)
+    check_overflow_knn(tag, pts32, devs, k, rt)
     for name in ("f32", "bf16"):
         if (len(batches[("window", name)]), len(batches[("knn", name)][0])) != (
                 n_windows, n_knn):
@@ -614,21 +655,21 @@ def profile_batches(runs: dict, torch) -> dict:
     warm-up run) and report, per batch, the host wall time, the device busy
     time (the union of the CUDA kernel and copy intervals in the trace),
     the idle share and the device time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     for kind, run in runs.items():
         run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = []
+
+        def timed(run=run):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            wall.append((time.perf_counter() - t0) * 1e6)
+        events = device_trace(timed, torch)
+        wall_us = wall[-1]
         spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        for e in events:
             a, b = e.time_range.start, e.time_range.end
             spans.append((a, b))
             by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
@@ -749,29 +790,86 @@ def time_ms(fn, reps, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, torch) -> float:
+def device_trace(body, torch):
+    """The device events (kernels, copies, memsets) of one run of ``body``
+    under ``torch.profiler``, the marks left out (see ``LEAD_MARKS``); it
+    raises after ``TRACE_TRIES`` traces that lost a mark at either end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = torch.empty(1, dtype=torch.uint8, device="cuda")
+    for t in range(TRACE_TRIES):
+        lead = LEAD_MARKS << t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                mark.fill_(1)
+            body()
+            mark.fill_(1)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events and MARK_NAME in events[0].name and MARK_NAME in events[-1].name:
+            return [e for e in events if MARK_NAME not in e.name]
+        log(f"device_trace: a trace lost its first {lead} marks or its last one")
+    raise RuntimeError(f"device_trace: {TRACE_TRIES} traces lost a mark at one end")
+
+
+def device_ms(fn, reps, torch, flush=None):
     """Device time of one call: the summed durations of the device events
     (kernels, memsets) of ``reps`` calls under ``torch.profiler``, over
     ``reps``.  Unlike :func:`time_ms` it leaves out the host's launch gaps,
-    which are most of a back-to-back loop of small launches."""
-    from torch.profiler import ProfilerActivity, profile
+    which are most of a back-to-back loop of small launches.  ``flush``,
+    where given, runs before every call; the sum then takes only the
+    events named as in a trace of the calls alone.  A trace (see
+    :func:`device_trace`) whose events do not come ``reps`` times each is
+    taken again, up to ``TRACE_TRIES`` times, and then it raises, naming
+    the odd events."""
+    from collections import Counter
+
+    def trace(cold):
+        def body():
+            for _ in range(reps):
+                if cold:
+                    flush()
+                fn()
+        return device_trace(body, torch)
+
+    def odd(events):
+        """The event names that do not come ``reps`` times, with counts."""
+        n = Counter(e.name for e in events)
+        return {name[:60]: c for name, c in n.items() if c != reps} if n else {"none": 0}
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+    bad = None
+    for _ in range(TRACE_TRIES):
+        own = trace(False)
+        bad = odd(own)
+        if bad:
+            continue
+        if flush is not None:
+            names = {e.name for e in own}
+            own = [e for e in trace(True) if e.name in names]
+            bad = odd(own) or {n[:60]: 0 for n in names - {e.name for e in own}}
+            if bad:
+                continue
+        return sum(e.time_range.end - e.time_range.start for e in own) / reps / 1e3
+    raise RuntimeError(f"device_ms: no whole trace of {reps} calls in {TRACE_TRIES} "
+                       f"tries; the last one's odd events: {bad}")
+
+
+def l2_flush(torch):
+    """A callable that overwrites a buffer larger than the card's L2."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
 
 
 def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
     """Hold each recorded call's kernel bit for bit against its plain
     version; ``timed`` (True, or the names to time) adds CUDA-event times
-    of kernel and plain version, the bound and the library call, and for a
-    ``:smallest`` call also the profiler's device time."""
+    of kernel and plain version, the bound, the library call and the
+    kernel's device time under the profiler (with a cold L2 for the
+    kernels of ``COLD_L2``)."""
     from repro_torch.kernels import knn_topk, partition_assign, ref, window_filter
 
     kernel = {"box_hits": window_filter.box_hits,
@@ -797,6 +895,7 @@ def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
     # the nearest single PyTorch call, timed beside the kernel and used
     # nowhere in the port (unsquared and unmasked)
     library = {"pairwise_dist2": lambda q, p, valid: torch.cdist(q, p)}
+    flush = l2_flush(torch) if timed else None
     res = {}
     for (name, bdtype), (args, kw, _) in sorted(calls.items()):
         got = kernel[name](*args, **kw)
@@ -823,8 +922,9 @@ def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
                 library_ms=(time_ms(lambda: library[name](*args), reps, torch)
                             if name in library else None),
             )
-            if bdtype.endswith(":smallest"):
-                rec["device_ms"] = device_ms(lambda: kernel[name](*args, **kw), reps, torch)
+            rec["device_ms"] = device_ms(lambda: kernel[name](*args, **kw), reps, torch,
+                                         flush=flush if name in COLD_L2 else None)
+            rec["cold_l2"] = name in COLD_L2
         res[(name, bdtype)] = rec
         log(f"kernel {name} ({bdtype}): bitwise equal to plain; {rec}")
     return res
@@ -905,6 +1005,7 @@ def main(argv=None) -> int:
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "device_ms": f32["device_ms"],
         }
         timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         for label, rec in (("bf16", k2.get((name, "bfloat16"))),

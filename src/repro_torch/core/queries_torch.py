@@ -26,11 +26,12 @@ Fused engine (a few scalar syncs per batch):
   * **k-NN batch.**  Each query ranks the leaves by box mindist
     (``leaf_mindist_tiled``; compressed bounds where exported, which only
     lowers a mindist), scans its C closest through ``pair_dist2``, merges
-    top-k in two levels (within each leaf, then across the C winners) and
-    certifies the result against the mindist of the closest unscanned
-    leaf.  Queries whose certificate fails rerun with a doubled budget,
-    gathered and scattered back on the device; the host syncs one scalar
-    (the failure count) per round.
+    top-k in two levels (within each leaf, then across the C winners; a
+    live slot ranks before padding even where its distance overflows to
+    ``+inf``) and certifies the result against the mindist of the closest
+    unscanned leaf.  Queries whose certificate fails rerun with a doubled
+    budget, gathered and scattered back on the device; the host syncs one
+    scalar (the failure count) per round.
 
 First-generation engine (packs on the host, reads only the f32 bounds):
 
@@ -427,30 +428,57 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
 # --------------------------------------------------------------------------
 # k-NN batch
 # --------------------------------------------------------------------------
-def _knn_merge(dev: DeviceTable, mind, cand, d2, k: int):
-    """Top-k of a round's (Q, C, S) candidate distances ``d2`` over the
-    leaves ``cand`` ranked by ``mind`` (Q, L), and the certificate.
+# The merge ranks int32 keys, not distances.  A squared distance is
+# non-negative or NaN, and its bit pattern with the sign cleared orders it:
+# every finite value before +inf (0x7f800000).  A padding slot keys just
+# above +inf, so a live point outranks padding whatever its distance (one
+# whose distance overflows included), and a NaN keys above padding: the
+# arithmetic that made it leaves it quiet, at least 0x7fc00000.
+_SIGN_OFF = 0x7FFFFFFF
+_PAD_KEY = 0x7F800001
 
-    Returns ``(ids, d2k, exact)`` of width ``min(k, C*S)``: ``exact``
-    holds where the k-th distance does not exceed the mindist of the
-    closest unscanned leaf.  ``mind`` is overwritten."""
+
+def _dist_key(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) & _SIGN_OFF
+
+
+def _live_slots(dev: DeviceTable, cand: torch.Tensor) -> torch.Tensor:
+    """(Q, C, S) bool: slot ``j`` of candidate leaf ``cand[q, c]`` holds a
+    point."""
+    slot = torch.arange(dev.leaf_size, dtype=torch.int32, device=cand.device)
+    return slot < dev.leaf_counts[cand][:, :, None]
+
+
+def _knn_merge(dev: DeviceTable, mind, cand, d2, live, k: int):
+    """Top-k of a round's (Q, C, S) candidate distances ``d2`` (``live``
+    marks the slots that hold points) over the leaves ``cand`` ranked by
+    ``mind`` (Q, L), and the certificate.
+
+    Returns ``(ids, d2k, exact)`` of width ``min(k, C*S)``: live slots
+    come first, by distance (``+inf`` included), then padding (id -1 at
+    f32 max), then NaN distances.  ``exact`` holds where the k-th entry
+    ranks no later than the mindist of the closest unscanned leaf, so
+    padding never certifies against a leaf that holds points, and a NaN
+    mindist certifies nothing.  ``mind`` is overwritten."""
     q, c, s = d2.shape
     kk = min(k, c * s)
     kl = min(kk, s)
+    key = torch.where(live, _dist_key(d2), _PAD_KEY)
     # two-level merge: top-k within each leaf block, then across the C
     # block winners (same result set, smaller sort fronts)
-    d2l, til = torch.topk(d2, kl, dim=2, largest=False)        # (Q, C, kl)
-    d2k, tim = torch.topk(d2l.reshape(q, c * kl), kk, dim=1, largest=False)
+    keyl, til = torch.topk(key, kl, dim=2, largest=False)       # (Q, C, kl)
+    keyk, tim = torch.topk(keyl.reshape(q, c * kl), kk, dim=1, largest=False)
     ti = torch.gather(til.reshape(q, c * kl), 1, tim) + (tim // kl) * s
     leaf_sel = torch.gather(cand, 1, ti // s)
     ids = dev.leaf_ids[leaf_sel, ti % s]
+    d2k = torch.gather(d2.reshape(q, c * s), 1, ti)   # padding holds f32 max
     if c >= dev.n_leaves:
         exact = torch.ones(q, dtype=torch.bool, device=d2.device)
     elif kk < k:  # fewer candidate slots than k: only a full scan certifies
         exact = torch.zeros(q, dtype=torch.bool, device=d2.device)
     else:
         unscanned = mind.scatter_(1, cand, float("inf")).min(dim=1).values
-        exact = d2k[:, -1] <= unscanned
+        exact = (keyk[:, -1] <= _dist_key(unscanned)) & (unscanned == unscanned)
     return ids, d2k, exact
 
 
@@ -467,13 +495,12 @@ def _knn_core(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
     c = min(c, n_l)
     mind = kops.leaf_mindist_tiled(qs, dev.leaf_lo, dev.leaf_hi)  # (Q, L)
     cand = torch.topk(mind, c, dim=1, largest=False).indices      # (Q, C)
-    slot = torch.arange(s, dtype=torch.int32, device=qs.device)
-    valid = slot[None, None, :] < dev.leaf_counts[cand][:, :, None]
+    live = _live_slots(dev, cand)
     d2 = kops.gathered_dist2(
         qs, dev.leaf_pts[cand].reshape(q, c * s, d),
-        valid.reshape(q, c * s).to(torch.int32),
+        live.reshape(q, c * s).to(torch.int32),
     ).reshape(q, c, s)
-    return _knn_merge(dev, mind, cand, d2, k)
+    return _knn_merge(dev, mind, cand, d2, live, k)
 
 
 def _knn_core_fused(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
@@ -496,7 +523,7 @@ def _knn_core_fused(dev: DeviceTable, qs: torch.Tensor, k: int, c: int):
         qs, dev.leaf_pts, dev.leaf_counts, q_rep.repeat_interleave(c),
         cand.reshape(-1).to(torch.int32),
     ).reshape(q, c, s)
-    ids, d2k, exact = _knn_merge(dev, mind, cand, d2, k)
+    ids, d2k, exact = _knn_merge(dev, mind, cand, d2, _live_slots(dev, cand), k)
     kk = d2k.shape[1]
     kf = min(k, n_l * s)
     if kf > kk:

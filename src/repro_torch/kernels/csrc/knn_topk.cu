@@ -18,11 +18,28 @@
 //   Replaces kernels/knn_topk.py:pair_dist2: for each (query, leaf) pair,
 //   the squared distance from the query to every slot of the leaf; slots
 //   at or past the leaf's count get f32 max.
-//   Bound on the H100: memory bytes, P*S*(4d + 4) (points read, distances
-//   written).  Design: one block per pair on gridDim.x (P = queries times
-//   candidate leaves outgrows gridDim.y's 65535 as the budget escalates);
-//   the block loads its own indices and query, and threads stride over
-//   the S slots.
+//   Bound on the H100: memory bytes, P*S*4 written plus the pairs' leaf
+//   blocks (S*4d per distinct leaf, count slots of it live) and indices;
+//   the (P, S) output dominates (11.2 MB for 8,192 pairs x 341 slots).  In
+//   the main path the leaf blocks are cold: the pairs come right after the
+//   (Q, L) mindist plane and its top-k, which flush the 50 MB L2.  A block
+//   per pair spent its life on a dependent chain (indices, query and count,
+//   a barrier, then the points and stores of three strided steps, 43 of
+//   its 128 threads idle in the last at S = 341); the design cuts the
+//   chain to one step.  Each warp owns a slice of 128 slots of one pair
+//   (S = 341: three warps per pair, on gridDim.x, so P may pass 65535):
+//   every lane reads the pair's indices (one broadcast word each), then, in
+//   one round, the query (in registers at d = 2 and 5, the widths of the
+//   port's cells) and the leaf's count, then the points of all 4 chunks of
+//   32 slots (scalar loads: leaf li's block starts at li * S * d floats, so
+//   its alignment depends on li), and stores the 4 chunks.  Stores are 4
+//   bytes, coalesced by lane: a row starts at p * S * 4 bytes, which S =
+//   341 leaves unaligned.  A padding slot, and every slot of a pair whose
+//   index lies outside its table, writes f32 max without reading a point.
+//   A block holds 8 warps (fewer per block for the last rounds' 16-512
+//   pairs timed within 4 % on the H100 80GB HBM3 at 700 W).  No shared
+//   memory, no barrier.  Any other d reads the query through L1 for each
+//   point.
 //
 // pairwise_dist2
 //   Replaces kernels/knn_topk.py:pairwise_dist2 (its _dist2_kernel), the
@@ -63,14 +80,14 @@
 
 namespace {
 
-constexpr int MAX_D = 64;        // the wrappers reject wider points
-
 constexpr int LM_LT = 128;       // leaves per block (threadIdx.x)
 constexpr int LM_QROWS = 4;      // threadIdx.y
 constexpr int LM_QPT = 4;        // queries per thread
 constexpr int LM_QT = LM_QROWS * LM_QPT;  // queries per block
 
-constexpr int PAIR_THREADS = 128;
+constexpr int PAIR_WARPS = 8;    // warps per block
+constexpr int PAIR_UNROLL = 4;   // 32-slot chunks per warp
+constexpr int PAIR_SLICE = 32 * PAIR_UNROLL;   // slots per warp
 
 constexpr int PD_THREADS = 256;  // points per block
 constexpr int PD_QT = 8;         // queries per block (gridDim.y)
@@ -123,36 +140,90 @@ leaf_mindist_kernel(const float* __restrict__ q, const B* __restrict__ lo,
   }
 }
 
-__global__ void __launch_bounds__(PAIR_THREADS)
+// D > 0: the dimension, the query in registers; D == 0: any d, the query
+// read through L1.  Warp g = x * (blockDim.x / 32) + w of block x scans
+// slots [128 k, 128 (k + 1)) of pair g / n_slices, k = g % n_slices.
+template <int D>
+__global__ void __launch_bounds__(PAIR_WARPS * 32)
 pair_dist2_kernel(const float* __restrict__ queries,
                   const float* __restrict__ leaf_pts,
                   const int32_t* __restrict__ leaf_counts,
                   const int32_t* __restrict__ q_idx,
                   const int32_t* __restrict__ leaf_idx,
-                  float* __restrict__ out, int nq, int n_leaves, int s, int d) {
-  __shared__ float sq[MAX_D];
-  const int p = blockIdx.x;
-  const int qi = q_idx[p];
-  const int li = leaf_idx[p];
+                  float* __restrict__ out, int n_pairs, int nq, int n_leaves,
+                  int s, int dd, int n_slices) {
+  constexpr int RD = D > 0 ? D : 1;
+  const int d = D > 0 ? D : dd;
+  const int lane = threadIdx.x & 31;
+  const int64_t g =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int64_t p = g / n_slices;
+  if (p >= n_pairs) return;                         // the whole warp leaves
+  const int c0 = static_cast<int>(g - p * n_slices) * PAIR_SLICE;
+  const int qi = __ldg(q_idx + p);
+  const int li = __ldg(leaf_idx + p);
   // an index outside its table cannot come from the engine; such a pair
   // gets no live slots instead of being read out of bounds
   const bool in_range = qi >= 0 && qi < nq && li >= 0 && li < n_leaves;
-  for (int k = threadIdx.x; k < d; k += blockDim.x)
-    sq[k] = in_range ? queries[static_cast<int64_t>(qi) * d + k] : 0.f;
-  __syncthreads();
-  const int live = in_range ? min(leaf_counts[li], s) : 0;
-  float* orow = out + static_cast<int64_t>(p) * s;
-  for (int j = threadIdx.x; j < s; j += blockDim.x) {
-    float acc = FLT_MAX;
-    if (j < live) {
-      const float* pt = leaf_pts + (static_cast<int64_t>(li) * s + j) * d;
-      acc = 0.f;
-      for (int k = 0; k < d; ++k) {
-        const float diff = __fsub_rn(pt[k], sq[k]);
-        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+  const float* qp = queries + static_cast<int64_t>(in_range ? qi : 0) * d;
+  float qv[RD];
+#pragma unroll
+  for (int k = 0; k < RD; ++k) qv[k] = 0.f;
+  int live = 0;
+  if (in_range) {                                   // warp-uniform
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) qv[k] = __ldg(qp + k);
+    }
+    const int cnt = __ldg(leaf_counts + li);
+    live = cnt < s ? cnt : s;
+  }
+  const float* pts = leaf_pts + static_cast<int64_t>(in_range ? li : 0) * s * d;
+  float acc[PAIR_UNROLL];
+  if constexpr (D > 0) {
+    float x[PAIR_UNROLL][D];
+#pragma unroll
+    for (int u = 0; u < PAIR_UNROLL; ++u) {          // every point first
+      const int j = c0 + 32 * u + lane;
+#pragma unroll
+      for (int k = 0; k < D; ++k) x[u][k] = 0.f;
+      if (j < live) {
+        const float* pt = pts + static_cast<int64_t>(j) * D;
+#pragma unroll
+        for (int k = 0; k < D; ++k) x[u][k] = __ldg(pt + k);
       }
     }
-    orow[j] = acc;
+#pragma unroll
+    for (int u = 0; u < PAIR_UNROLL; ++u) {
+      float a = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const float diff = __fsub_rn(x[u][k], qv[k]);
+        a = __fadd_rn(a, __fmul_rn(diff, diff));
+      }
+      acc[u] = c0 + 32 * u + lane < live ? a : FLT_MAX;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < PAIR_UNROLL; ++u) {
+      const int j = c0 + 32 * u + lane;
+      float a = FLT_MAX;
+      if (j < live) {
+        const float* pt = pts + static_cast<int64_t>(j) * d;
+        a = 0.f;
+        for (int k = 0; k < d; ++k) {
+          const float diff = __fsub_rn(__ldg(pt + k), __ldg(qp + k));
+          a = __fadd_rn(a, __fmul_rn(diff, diff));
+        }
+      }
+      acc[u] = a;
+    }
+  }
+  float* orow = out + p * s;
+#pragma unroll
+  for (int u = 0; u < PAIR_UNROLL; ++u) {
+    const int j = c0 + 32 * u + lane;
+    if (j < s) orow[j] = acc[u];
   }
 }
 
@@ -235,14 +306,24 @@ extern "C" int pair_dist2_launch(const void* queries, const void* leaf_pts,
                                  int nq, int n_leaves, int s, int d,
                                  void* stream) {
   if (n_pairs > 0) {
-    pair_dist2_kernel<<<n_pairs, PAIR_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(queries),
-        static_cast<const float*>(leaf_pts),
-        static_cast<const int32_t*>(leaf_counts),
-        static_cast<const int32_t*>(q_idx),
-        static_cast<const int32_t*>(leaf_idx), static_cast<float*>(out), nq,
-        n_leaves, s, d);
+    // a warp per slice of PAIR_SLICE slots of a pair
+    const int n_slices = s > PAIR_SLICE ? (s + PAIR_SLICE - 1) / PAIR_SLICE : 1;
+    const int64_t warps = static_cast<int64_t>(n_pairs) * n_slices;
+    const int64_t blocks = (warps + PAIR_WARPS - 1) / PAIR_WARPS;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+#define PD2(DD)                                                               \
+  pair_dist2_kernel<DD><<<static_cast<unsigned>(blocks), PAIR_WARPS * 32, 0,  \
+                          static_cast<cudaStream_t>(stream)>>>(               \
+      static_cast<const float*>(queries), static_cast<const float*>(leaf_pts), \
+      static_cast<const int32_t*>(leaf_counts),                               \
+      static_cast<const int32_t*>(q_idx), static_cast<const int32_t*>(leaf_idx), \
+      static_cast<float*>(out), n_pairs, nq, n_leaves, s, d, n_slices)
+    switch (d) {                    // the widths of the port's cells
+      case 2: PD2(2); break;
+      case 5: PD2(5); break;
+      default: PD2(0); break;
+    }
+#undef PD2
   }
   return static_cast<int>(cudaGetLastError());
 }

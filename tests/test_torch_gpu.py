@@ -549,3 +549,95 @@ def test_pair_window_ids_edge_shapes_match_plain(cuda, d, s):
                                               a[5][:, :0].contiguous(), *a[6:])
         torch.cuda.synchronize()
         assert empty[0].shape == (70_000, 0) and not empty[1].any()
+
+
+def _at_odd_offset(t):
+    """A copy of ``t`` that starts one element past an aligned buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 341])
+def test_pair_dist2_edge_shapes_match_plain(cuda, d, s):
+    """The redesigned distance scan bit for bit against its plain version at
+    1 to 70,000 pairs (past 65,535 blocks), slot counts around one and two
+    warps, leaf counts 0, S and above S among random ones, NaN, +-inf and
+    -0 in points and queries, and a leaf table at an odd offset (the
+    kernel assumes no alignment of a leaf block).  d = 3 takes the path
+    that reads the query through L1.  A pair whose index lies outside its
+    table gets f32 max in every slot."""
+    rng = np.random.default_rng(200 + 7 * d + s)
+    nq, n_l = 60, 40
+    q = _with_edge_values(rng, (rng.integers(0, 64, (nq, d)) / 64).astype(np.float32))
+    pts = _with_edge_values(rng, (rng.integers(0, 64, (n_l, s, d)) / 64).astype(np.float32))
+    counts = rng.integers(0, s + 1, n_l).astype(np.int32)
+    counts[:4] = [0, s, s + 7, s // 2]
+    qt, pt, ct = (torch.from_numpy(a).to(cuda) for a in (q, pts, counts))
+    for p in (1, 7, 64, 8192, 70_000):
+        qi = torch.from_numpy(rng.integers(0, nq, p).astype(np.int32)).to(cuda)
+        li = torch.from_numpy(rng.integers(0, n_l, p).astype(np.int32)).to(cuda)
+        li[:4] = torch.arange(min(p, 4), dtype=torch.int32, device=cuda)
+        for table in (pt, _at_odd_offset(pt)):
+            got = knn_topk.pair_dist2(qt, table, ct, qi, li)
+            want = ref.pair_dist2_ref(qt, table, ct, qi, li)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == (p, s)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+                p, table.data_ptr() % 16)
+    bad_q, bad_l = qi.clone(), li.clone()
+    bad_q[::5], bad_l[1::7] = nq + 3, -1
+    out = (bad_q >= nq) | (bad_l < 0)
+    got = knn_topk.pair_dist2(qt, pt, ct, bad_q, bad_l)
+    want = ref.pair_dist2_ref(qt, pt, ct, torch.where(out, 0, bad_q), torch.where(out, 0, bad_l))
+    want[out] = float(F32_MAX)
+    torch.cuda.synchronize()
+    assert out.any() and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 3, 5])
+@pytest.mark.parametrize("npp", [1, 3, 4, 5, 39_168])
+def test_window_count_gathered_edge_shapes_match_plain(cuda, d, npp):
+    """The redesigned count bit for bit against its plain version at 1 to
+    1024 windows (one block per window, or a window's slots split over
+    several blocks whose counts add atomically): rows with no valid slot,
+    every slot valid, and about 6 % valid in runs (the grid index's
+    shape), validity words of 0, 1, 2 and -1, NaN, +-inf and -0 in points
+    and bounds, windows with lo > hi, points at an odd offset, and a
+    validity tensor at an odd offset, which takes the scalar path even
+    where npp % 4 == 0 (npp = 1, 3 and 5 always take it).  The scalar path
+    and d = 3 run the generic-d code, which keeps the bounds in shared
+    memory."""
+    g = torch.Generator(device=cuda).manual_seed(300 + 11 * d + npp)
+    edges = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0], device=cuda)
+
+    def edge(x):
+        pick = torch.rand(x.shape, generator=g, device=cuda) < 0.05
+        which = torch.randint(0, 4, x.shape, generator=g, device=cuda)
+        return torch.where(pick, edges[which], x)
+
+    for nq in (1, 3, 64, 1024):
+        lo = edge(torch.randint(0, 40, (nq, d), generator=g, device=cuda) / 64)
+        hi = edge(lo + torch.randint(0, 30, (nq, d), generator=g, device=cuda) / 64)
+        flip = torch.rand(nq, generator=g, device=cuda) < 0.2
+        lo[flip, 0], hi[flip, 0] = hi[flip, 0] + 1 / 64, lo[flip, 0]
+        pts = edge(torch.randint(0, 64, (nq, npp, d), generator=g, device=cuda) / 64)
+        kind = torch.arange(nq, device=cuda)[:, None] % 3       # none, all, runs of 6 %
+        run = (torch.arange(npp, device=cuda)[None, :] // 341 + kind) % 16 == 0
+        word = torch.randint(-1, 3, (nq, npp), generator=g, device=cuda)
+        valid = torch.where(kind == 0, torch.zeros_like(word),
+                            torch.where(kind == 1, torch.ones_like(word),
+                                        torch.where(run, word, 0))).to(torch.int32)
+        for p_t, v_t in ((pts, valid), (_at_odd_offset(pts), valid),
+                         (pts, _at_odd_offset(valid))):
+            got = window_filter.window_count_gathered(lo, hi, p_t, v_t)
+            want = ref.window_count_gathered_ref(lo, hi, p_t, v_t)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and got.shape == (nq,)
+            assert torch.equal(got, want), (nq, p_t.data_ptr() % 16, v_t.data_ptr() % 16)
+        if npp == 39_168 and nq == 1024:
+            assert want.sum() > 0 and (want[::3] == 0).all()
