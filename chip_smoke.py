@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main, first-generation and retrieval paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's main, serving, first-generation and retrieval
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -22,9 +22,28 @@ Phases (any failure exits non-zero; nothing is caught):
    k distinct dataset rows at +inf on both exports and both engines.
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-   Phases 3u, 3c, 5 and 6 at d = 2 run right after phase 3, and 4u, 4c,
-   the d = 5 retrieval phase right after phase 4, on their exports, points
-   and batches.
+   Phases 3a, 3u, 3c, 5 and 6 at d = 2 run right after phase 3, and 4u,
+   4c, the d = 5 retrieval phase right after phase 4, on their exports,
+   points and batches.
+3a. Serving (``DeviceQueryServer``, microbatches of 64).  Static: the
+   server over phase 3's index answers its 1024 windows and 1024 k-NN
+   queries; every window equals the fused batch's id set and every k-NN
+   distance sequence the fused batch's.  Adaptive: an ``AMBI`` over phase
+   3's points rounded to f32 (buffer 5 % of the pages) boots the server
+   from its single unrefined root (no leaf on the card, one cold row);
+   16 window batches (half-width 0.01) and 16 k-NN batches (k = 16) of 64
+   queries, each a centre plus a jitter in [0, 0.08), alternate between
+   two dataset rows (both drawn with ``default_rng(13)``), the launch
+   counts zeroed before and read after (the four main-path kernels must
+   have launched); the first four batches of each kind are replayed (no
+   cold query, no page I/O).  Windows of batches 0, 4, 8, 12, 15 and of
+   the replay, and the first 16 k-NN queries of each, equal a brute force
+   over all points; the AMBI stays partial; one full export, every leaf
+   on the card uploaded once, one delta refresh per swap; no retry, host
+   fallback or degraded answer (without a fault plan, each would hide a
+   device fault).  Then ``window_hot``/``knn_hot`` over phase 3's first 64
+   windows and queries: a certificate is incomplete exactly where the
+   query reaches cold space, and complete answers equal the brute force.
 3u. First-generation engine (``fused=False``) on phase 3's two exports,
    the same windows and k-NN queries, three runs each, counts zeroed
    before and read after: ``box_hits``, ``window_mask_gathered``,
@@ -61,13 +80,18 @@ Phases (any failure exits non-zero; nothing is caught):
    bit against its plain PyTorch version on the card; both are timed with
    CUDA events, ``pairwise_dist2`` beside ``torch.cdist``, and every timed
    kernel call also by its device time under ``torch.profiler``, with
-   the L2 flushed before each call for the kernels of ``COLD_L2``.  The
+   the L2 flushed before each call for the kernels of ``COLD_L2``.  Phase
+   3a's calls are held bit for bit too, untimed: the static server's first
+   (largest) and smallest call of each main-path kernel, and the adaptive
+   stream's first (largest), smallest and last (the one-row root level at
+   boot, cold slots, the leaf blocks that ``apply_delta`` appended).  The
    same comparison runs at d = 5, where the six redesigned kernels
    (``TIMED_D5``) are timed too.  Each phase also counts its launches by
    shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
-per export, fused and first-generation, of the fused window batch's
+per export, fused and first-generation, of one hot adaptive window and
+k-NN batch (phase 3a's first batch, replayed), of the fused window batch's
 frontier alone (``box_hits`` and the mask operations around it), and of
 the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
@@ -181,13 +205,16 @@ class Recorder:
     ``box_hits``, ``window_mask_gathered`` and the retrieval kernels, the
     first call (the whole batch's first round or first pair chunk) for the
     others, and for the kernels of ``SMALLEST`` also the smallest (key
-    dtype ``<dtype>:smallest``).  ``shapes`` counts the calls of every kernel,
-    not only those of ``names``, by ``"<bound argument shape> -> <output
-    shape>"``."""
+    dtype ``<dtype>:smallest``); with ``last``, also every kernel's last
+    call (``<dtype>:last``).  ``suffix`` follows the dtype in every key.
+    ``shapes`` counts the calls of every kernel, not only those of
+    ``names``, by ``"<bound argument shape> -> <output shape>"``."""
 
-    def __init__(self, ops, names):
+    def __init__(self, ops, names, suffix="", last=False):
         self.ops = ops
         self.names = names
+        self.suffix = suffix
+        self.last = last
         self.calls: dict = {}
         self.shapes: dict = {}
         self._orig = {}
@@ -210,14 +237,17 @@ class Recorder:
             first = out[0] if isinstance(out, tuple) else out
             bound = args[BOUND_ARG[name]]
             dtype = str(bound.dtype).replace("torch.", "")
-            key = (name, dtype)
+            label = dtype + self.suffix
+            key = (name, label)
             if name in self.names and (key not in self.calls or (
                     name in LARGEST and first.numel() > self.calls[key][2])):
                 self.calls[key] = (args, kw, first.numel())
-            small = (name, f"{dtype}:smallest")
+            small = (name, f"{label}:smallest")
             if name in self.names and name in SMALLEST and (
                     small not in self.calls or first.numel() < self.calls[small][2]):
                 self.calls[small] = (args, kw, first.numel())
+            if name in self.names and self.last:
+                self.calls[(name, f"{label}:last")] = (args, kw, first.numel())
             shape = (f"{dtype} {'x'.join(map(str, bound.shape))} -> "
                      f"{'x'.join(map(str, first.shape))}")
             by_shape = self.shapes.setdefault(name, {})
@@ -518,6 +548,248 @@ def window_count_path(tag, pts, inputs, torch, launches, device="cuda"):
     log(f"[{tag}] ops.window_count: {out}; all {len(counts)} counts over "
         f"{len(pts_dev)} points equal the fused window batch's sizes")
     return out, recorder.calls
+
+
+# --------------------------------------------------------------------------
+# serving: DeviceQueryServer, static and adaptive over AMBI
+# --------------------------------------------------------------------------
+class SortedWindows:
+    """Brute-force windows over every point, through one sort by the first
+    coordinate: each window scans only the points of its x-range, with the
+    same f32 comparisons as :func:`brute_window`."""
+
+    def __init__(self, pts32):
+        self.pts32 = pts32
+        self.order = np.argsort(pts32[:, 0], kind="stable")
+        self.xs = pts32[self.order, 0]
+
+    def __call__(self, lo, hi) -> np.ndarray:
+        a = np.searchsorted(self.xs, lo[0], side="left")
+        b = np.searchsorted(self.xs, hi[0], side="right")
+        cand = self.order[a:b]
+        p = self.pts32[cand]
+        inside = np.ones(len(cand), dtype=bool)
+        for k in range(p.shape[1]):
+            inside &= (p[:, k] >= lo[k]) & (p[:, k] <= hi[k])
+        return np.sort(cand[inside])
+
+
+def serving_zero_faults(tag, stats) -> None:
+    """No fault plan is armed, so a retry, a host fallback or a degraded
+    answer can only hide a device fault (a kernel that failed to build or
+    launch, retried and then answered by the host): raise on any."""
+    bad = {k: getattr(stats, k) for k in ("retries", "host_fallbacks", "degraded_queries")
+           if getattr(stats, k)}
+    if bad:
+        raise AssertionError(f"[{tag}] the resilience plane absorbed device faults: {bad}")
+
+
+def serving_path(tag, pts, inputs, buffer_pages, full_leaves, k, torch, rt, launches,
+                 device="cuda", n_batches=16, per_batch=64, n_replay=4, n_check=16,
+                 profile=False):
+    """Phase 3a: ``DeviceQueryServer`` over phase 3's index (static), then
+    adaptive over an ``AMBI`` of phase 3's points rounded to f32 (the
+    device's values, so host and device answers agree exactly), booted
+    from the single unrefined root and fed a two-centre hotspot stream,
+    with the launch counts zeroed before the stream and read after.
+    Returns the measurements and the kernel calls of both runs, recorded
+    under ``<dtype>:static`` and ``<dtype>:serving`` (the adaptive
+    stream's first, smallest and last call of each kernel: the one-row
+    root level at boot, cold slots, the leaf blocks that apply_delta appended)."""
+    from repro_torch.kernels import ops
+
+    out = {"k": k, "buffer_pages": buffer_pages}
+    los, his, qs = inputs["los"], inputs["his"], inputs["qs"]
+    pts32 = pts.astype(np.float32)
+
+    # static serving: every answer equals phase 3's fused batch (f32 export)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static = rt.DeviceQueryServer.from_index(inputs["index"], device=device)
+    torch.cuda.synchronize()
+    out["static_boot_s"] = time.perf_counter() - t0
+    walls = {}
+    static_rec = Recorder(ops, MAIN_PATH, suffix=":static")
+    for kind, run in (("window", lambda: static.window(los, his)),
+                      ("knn", lambda: static.knn(qs, k))):
+        t0 = time.perf_counter()
+        with static_rec:
+            res = run()
+        walls[kind] = time.perf_counter() - t0
+        if kind == "window":
+            want = inputs["batches"][("window", "f32")]
+            bad = [i for i, (a, b) in enumerate(zip(res, want))
+                   if not np.array_equal(np.sort(a), np.sort(b))]
+        else:
+            want = inputs["batches"][("knn", "f32")][1]
+            bad = [i for i, (ids, w) in enumerate(zip(res, want))
+                   if not np.array_equal(brute_d2(pts32[ids], qs[i].astype(np.float32)), w)]
+        if len(res) != len(want) or bad:
+            raise AssertionError(f"[{tag}] static {kind} answers differ from phase 3's at "
+                                 f"{bad[:5]} ({len(res)} of {len(want)})")
+    serving_zero_faults(tag, static.stats)
+    out["static"] = {"wall_s": walls, "microbatches": static.stats.microbatches}
+    log(f"[{tag}] static DeviceQueryServer: boot {out['static_boot_s']:.3f} s, "
+        f"{walls} over {static.stats.microbatches} microbatches of 64; every window and "
+        f"k-NN distance sequence equals phase 3's")
+    del static
+
+    # adaptive serving from the single unrefined root
+    p = pts32.astype(np.float64)
+    t0 = time.perf_counter()
+    ambi = rt.AMBI(p, buffer_pages)
+    out["ambi_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = rt.DeviceQueryServer.from_ambi(ambi, device=device)
+    torch.cuda.synchronize()
+    out["boot_s"] = time.perf_counter() - t0
+    if (srv.dev.n_leaves, srv.dev.n_cold) != (0, 1):
+        raise AssertionError(f"[{tag}] boot export holds {srv.dev.n_leaves} leaves and "
+                             f"{srv.dev.n_cold} cold rows, expected 0 and 1")
+    rng = np.random.default_rng(13)
+    centres = p[rng.integers(0, len(p), 2)]
+    stream = [(centres[s % 2] + rng.random((per_batch, 2)) * 0.08)
+              .astype(np.float32).astype(np.float64) for s in range(n_batches)]
+    hw = 0.01
+    delta_s = []
+    orig_delta = rt.DeviceTable.apply_delta
+
+    def timed_delta(dev, table, points):
+        t = time.perf_counter()
+        new = orig_delta(dev, table, points)
+        torch.cuda.synchronize()
+        delta_s.append(time.perf_counter() - t)
+        return new
+
+    def serve(kind, batch):
+        st = srv.stats
+        before = (st.cold_queries, st.hot_queries, st.grafts, len(delta_s))
+        t = time.perf_counter()
+        res = srv.window(batch - hw, batch + hw) if kind == "window" else srv.knn(batch, k)
+        wall = time.perf_counter() - t
+        rec = {"kind": kind, "wall_s": wall, "cold": st.cold_queries - before[0],
+               "hot": st.hot_queries - before[1], "grafts": st.grafts - before[2],
+               "apply_delta_s": sum(delta_s[before[3]:])}
+        return res, rec
+
+    rt.DeviceTable.apply_delta = timed_delta
+    recorder = Recorder(ops, MAIN_PATH, suffix=":serving", last=True)
+    launches.reset()
+    try:
+        with recorder:
+            answers, batches = [], []
+            for batch in stream:
+                for kind in ("window", "knn"):
+                    res, rec = serve(kind, batch)
+                    answers.append((kind, batch, res))
+                    batches.append(rec)
+                    log(f"[{tag}] adaptive {rec}")
+            counts = launches.counts()
+            cold, io = srv.stats.cold_queries, ambi.store.stats.total
+            replay = []
+            for batch in stream[:n_replay]:
+                for kind in ("window", "knn"):
+                    res, rec = serve(kind, batch)
+                    answers.append((kind, batch, res))
+                    replay.append(rec)
+    finally:
+        rt.DeviceTable.apply_delta = orig_delta
+    st, up = srv.stats, srv.upload_stats
+    out.update(batches=batches, replay=replay, launches=counts,
+               stats=dict(vars(st)), upload_stats=up.as_dict(),
+               apply_delta_s=sum(delta_s), leaves=srv.dev.n_leaves,
+               cold_rows=srv.dev.n_cold, refined_share=srv.dev.n_leaves / full_leaves,
+               replay_cold=st.cold_queries - cold,
+               replay_io=ambi.store.stats.total - io)
+    log(f"[{tag}] ambi {out['ambi_s']:.3f} s, boot {out['boot_s']:.3f} s; {st}; uploads "
+        f"{up.as_dict()}; apply_delta {out['apply_delta_s']:.3f} s in {len(delta_s)} "
+        f"calls; {srv.dev.n_leaves} leaves on the card of {full_leaves} "
+        f"({out['refined_share']:.4f}), {srv.dev.n_cold} cold rows; replay walls "
+        f"{[r['wall_s'] for r in replay]}")
+    missing = [kk for kk in MAIN_PATH if counts[kk] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] kernels not launched by the adaptive stream: {missing}")
+    if out["replay_cold"] or out["replay_io"]:
+        raise AssertionError(f"[{tag}] the replay was not all hot: {out['replay_cold']} "
+                             f"cold queries, {out['replay_io']} page I/Os")
+    if ambi.is_fully_refined():
+        raise AssertionError(f"[{tag}] the hotspot stream refined the whole index")
+    if not (up.full_exports == 1 and up.uploaded_leaf_blocks == srv.dev.n_leaves
+            and up.delta_refreshes == st.delta_refreshes > 0):
+        raise AssertionError(f"[{tag}] uploads {up.as_dict()} against {st} and "
+                             f"{srv.dev.n_leaves} leaves on the card")
+    serving_zero_faults(tag, st)
+
+    # answers against the brute force over all points
+    windows = SortedWindows(pts32)
+    checked = [i for i in (0, 4, 8, 12, 15) if i < n_batches]
+    checked += list(range(n_batches, n_batches + n_replay))
+    for b in checked:
+        for kind, batch, res in answers[2 * b: 2 * b + 2]:
+            b32 = batch.astype(np.float32)
+            if kind == "window":
+                for i in range(len(batch)):
+                    if not np.array_equal(np.sort(res[i]), windows(b32[i] - np.float32(hw),
+                                                                   b32[i] + np.float32(hw))):
+                        raise AssertionError(f"[{tag}] adaptive window {b}/{i} differs from "
+                                             f"brute force")
+            else:
+                for i in range(n_check):
+                    full = brute_d2(pts32, b32[i])
+                    check_knn(full, res[i], full[res[i]], k)
+    log(f"[{tag}] windows of batches {checked} and the first {n_check} k-NN queries of "
+        f"each equal the brute force over all points")
+
+    # brownout tier over phase 3's first 64 windows and queries, rounded
+    # to f32 as the device sees them (the host cold test then agrees)
+    from repro_torch.core.geometry import boxes_mindist_sq
+
+    w_lo, w_hi, q64 = (x[:per_batch].astype(np.float32).astype(np.float64)
+                       for x in (los, his, qs))
+    t = ambi.table
+    unref = np.flatnonzero(t.unrefined)
+    (w_res, w_certs), (k_res, k_certs) = srv.window_hot(w_lo, w_hi), srv.knn_hot(q64, k)
+    lo32, hi32 = w_lo.astype(np.float32), w_hi.astype(np.float32)
+    reach = ((t.mbb_lo[unref][None] <= w_hi[:, None])
+             & (t.mbb_hi[unref][None] >= w_lo[:, None])).all(axis=2).any(axis=1)
+    w_complete = np.array([c.complete for c in w_certs])
+    if not np.array_equal(w_complete, ~reach):
+        raise AssertionError(f"[{tag}] window_hot certificates: incomplete at "
+                             f"{np.flatnonzero(~w_complete)}, cold space reached at "
+                             f"{np.flatnonzero(reach)}")
+    q32 = q64.astype(np.float32)
+    minds = boxes_mindist_sq(t.mbb_lo[unref], t.mbb_hi[unref], q64)
+    k_cold = np.array([
+        len(r) < k or minds[i].min() <= float(np.max(np.sum(
+            (p[r] - q64[i]) ** 2, axis=1)))
+        for i, r in enumerate(k_res)])
+    k_complete = np.array([c.complete for c in k_certs])
+    if not np.array_equal(k_complete, ~k_cold):
+        raise AssertionError(f"[{tag}] knn_hot certificates: incomplete at "
+                             f"{np.flatnonzero(~k_complete)}, cold space reachable at "
+                             f"{np.flatnonzero(k_cold)}")
+    for i in np.flatnonzero(w_complete):
+        if not np.array_equal(np.sort(w_res[i]), windows(lo32[i], hi32[i])):
+            raise AssertionError(f"[{tag}] complete window_hot answer {i} differs from "
+                                 f"brute force")
+    for i in np.flatnonzero(k_complete)[:n_check]:
+        full = brute_d2(pts32, q32[i])
+        check_knn(full, k_res[i], full[k_res[i]], k)
+    if srv.stats.retries or srv.stats.host_fallbacks:
+        raise AssertionError(f"[{tag}] the brownout tier retried or fell back: {srv.stats}")
+    out["brownout"] = {"window_complete": int(w_complete.sum()),
+                       "knn_complete": int(k_complete.sum()), "queries": per_batch}
+    log(f"[{tag}] brownout tier: {out['brownout']}; certificates incomplete exactly where "
+        f"the query reaches cold space; complete answers equal the brute force")
+    if profile:
+        b = stream[0]
+        out["profile"] = profile_batches({
+            "window": lambda: srv.window(b - hw, b + hw),
+            "knn": lambda: srv.knn(b, k)}, torch)
+        log(f"[{tag}] profile (hot replay batches): {out['profile']}")
+    out["launch_shapes"] = recorder.shapes
+    del srv, ambi, windows
+    return out, {**static_rec.calls, **recorder.calls}
 
 
 # --------------------------------------------------------------------------
@@ -972,6 +1244,10 @@ def main(argv=None) -> int:
     pts = osm_like(10_000_000, seed=7)
     results["d2"], calls2, inputs = main_path("d=2", pts, 11, 1024, 1024, 16, torch,
                                               rt, launches, profile=args.profile)
+    results["serving_d2"], scalls2 = serving_path("serving d=2", pts, inputs,
+                                         results["d2"]["buffer_pages"],
+                                         results["d2"]["leaves"], 16, torch, rt, launches,
+                                         profile=args.profile)
     results["unfused_d2"], ucalls2 = unfused_path("d=2", inputs, 16, torch, rt, launches,
                                                   profile=args.profile)
     results["window_count_d2"], wcalls2 = window_count_path("d=2", pts, inputs, torch,
@@ -995,6 +1271,9 @@ def main(argv=None) -> int:
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
     k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
+    # phase 3a's calls (64-query microbatches, the partial export), held
+    # bit for bit but not timed
+    ks = kernel_phase(scalls2, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():
@@ -1016,7 +1295,7 @@ def main(argv=None) -> int:
                                 ("shapes", *timing, "device_ms") if key in rec}
         line.append(entry)
     results["kernels"] = line
-    results["kernel_detail"] = {f"{n}[{b}]": v for (n, b), v in k2.items()}
+    results["kernel_detail"] = {f"{n}[{b}]": v for (n, b), v in {**k2, **ks}.items()}
     results["kernel_detail_d5"] = {f"{n}[{b}]": v for (n, b), v in k5.items()}
     results["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -2,13 +2,18 @@
 
 It carries the main path: the FMBI bulk load on the host, the device
 export (``DeviceTable``) and the window and k-NN batches (fused, or the
-first generation with ``fused=False``); the brute-force count
-``kernels.ops.window_count``; and the retrieval path: the balanced
-``GridIndex`` built on the device, its routing, window counts and k-NN,
-served by ``RetrievalServer``.  Ten hand-written Hopper kernels carry
-them.  It imports ``torch`` and numpy only.
+first generation with ``fused=False``); serving through
+``DeviceQueryServer``, static or adaptive over AMBI (hot queries on the
+card's partial export, cold ones refined by the host engine, grafts
+uploaded as deltas); the paper's NumPy engine and oracles; the
+brute-force count ``kernels.ops.window_count``; and the retrieval path:
+the balanced ``GridIndex`` built on the device, its routing, window
+counts and k-NN, served by ``RetrievalServer``.  Ten hand-written Hopper
+kernels carry them.  It imports ``torch`` and numpy only.
 """
 from .core import (
+    AMBI,
+    CompletenessCertificate,
     DeviceTable,
     GridIndex,
     Index,
@@ -16,13 +21,29 @@ from .core import (
     NodeTable,
     PageStore,
     bulk_load,
+    knn_oracle,
+    knn_query,
     knn_query_batch_torch,
+    window_oracle,
+    window_query,
     window_query_batch_torch,
 )
-from .serve import RetrievalServer, RetrievalStats
+from .serve import (
+    DeviceQueryServer,
+    DeviceQueryStats,
+    FaultPlan,
+    RetrievalServer,
+    RetrievalStats,
+    RetryPolicy,
+)
 
 __all__ = [
+    "AMBI",
+    "CompletenessCertificate",
+    "DeviceQueryServer",
+    "DeviceQueryStats",
     "DeviceTable",
+    "FaultPlan",
     "GridIndex",
     "Index",
     "IOStats",
@@ -30,7 +51,12 @@ __all__ = [
     "PageStore",
     "RetrievalServer",
     "RetrievalStats",
+    "RetryPolicy",
     "bulk_load",
+    "knn_oracle",
+    "knn_query",
     "knn_query_batch_torch",
+    "window_oracle",
+    "window_query",
     "window_query_batch_torch",
 ]

@@ -36,10 +36,11 @@ retrieval server can boot from a snapshot without rebuilding, and
 CUDA query engine (``core/queries_torch.py``) uploads.
 
 This module is the PyTorch port's own copy of the JAX package's node
-table.  It differs in three places: the bf16 compressed bounds come back as
-``np.uint16`` bit patterns (no ``ml_dtypes``), the ``JaxIndex`` bridge is
-``to_grid_index`` (host tensors of the port's ``GridIndex``), and the
-mutators carry no writer-lock sanitizer hooks yet.
+table.  It differs in two places: the bf16 compressed bounds come back as
+``np.uint16`` bit patterns (no ``ml_dtypes``), and the ``JaxIndex`` bridge
+is ``to_grid_index`` (host tensors of the port's ``GridIndex``).  The
+post-boot mutators carry the writer-lock sanitizer hooks
+(``analysis/runtime.py``) as the reference's do.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..analysis import runtime as _san
 from .ioutil import atomic_output
 
 
@@ -137,12 +139,14 @@ class NodeTable:
         "perm_reallocs",
         "node_rows_copied",
         "perm_elems_copied",
+        "_san_lock",  # REPRO_SANITIZE: writer lock this table is bound to
     )
 
     def __init__(self, dim: int, node_capacity: int = 8, perm_capacity: int = 8):
         self.dim = int(dim)
         self._n = 0
         self._np = 0
+        self._san_lock = None
         # Reallocation accounting: how many times the backing arrays were
         # reallocated and how many live elements those reallocations copied.
         # Under amortized doubling total copies stay O(final size); a
@@ -362,6 +366,7 @@ class NodeTable:
         New rows and perm segments are *appended* (amortized growth); the
         row's previous raw-point segment simply goes dead.
         """
+        _san.check_write(self, "graft")
         row = int(row)
         if len(entries) == 1:
             e = entries[0]
@@ -407,6 +412,7 @@ class NodeTable:
         buffer directly).  Page ids are taken verbatim — the tiers share
         one ``PageStore`` namespace with the mirror.
         """
+        _san.check_write(self, "append_subtree")
         k = src.n_nodes
         base = self._grow_nodes(k)
         pbase = self._np
@@ -431,6 +437,7 @@ class NodeTable:
     def append_row_copies(self, rows) -> int:
         """Append verbatim copies of ``rows`` (pointers preserved, so a copy
         of a branch adopts the original's children); returns the base row."""
+        _san.check_write(self, "append_row_copies")
         rows = np.asarray(rows, dtype=np.int64)
         base = self._grow_nodes(len(rows))
         sl = slice(base, base + len(rows))
@@ -448,6 +455,7 @@ class NodeTable:
 
     def set_root_children(self, first: int, count: int) -> None:
         """Re-point row 0's CSR child block and tighten its MBB."""
+        _san.check_write(self, "set_root_children")
         self._first_child[0] = first
         self._child_count[0] = count
         self._mbb_lo[0] = self._mbb_lo[first : first + count].min(axis=0)
@@ -459,6 +467,7 @@ class NodeTable:
     def append_branch(self, first: int, count: int, page_id: int) -> int:
         """Append a branch row adopting the existing contiguous row block
         ``[first, first + count)`` as its children; returns the new row."""
+        _san.check_write(self, "append_branch")
         r = self._grow_nodes(1)
         self._mbb_lo[r] = self._mbb_lo[first : first + count].min(axis=0)
         self._mbb_hi[r] = self._mbb_hi[first : first + count].max(axis=0)
@@ -475,6 +484,7 @@ class NodeTable:
     def neutralize_rows(self, rows) -> None:
         """Mark detached rows dead for every engine: inverted MBB (matches
         no window, +inf k-NN mindist) and zero fill count."""
+        _san.check_write(self, "neutralize_rows")
         rows = np.asarray(rows, dtype=np.int64)
         # 1e17: beyond any data yet small enough that f32 mindist math on
         # the inverted box (sums and squares of ~2e17) stays finite
@@ -504,6 +514,7 @@ class NodeTable:
         host-side scaffolding (device-table slot maps, shard root lists)
         can be rebased instead of rebuilt.
         """
+        _san.check_write(self, "compact")
         blocks = []
         cur = np.zeros(1, dtype=np.int64)
         while cur.size:

@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from .nodetable import NodeTable
+from .nodetable import NodeTable, compress_boxes_bf16
 
 BIG = float(np.finfo(np.float32).max)
 
@@ -105,14 +105,37 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class UploadStats:
-    """Host -> device upload counters of one export (per instance)."""
+    """Host -> device upload counters (per instance: each
+    ``DeviceQueryServer``, and each export given no sink, owns its own).
+    Supports dict-style reads for the counter names."""
 
     full_exports: int = 0          # DeviceTable.from_table calls
+    delta_refreshes: int = 0       # DeviceTable.apply_delta calls
     uploaded_leaf_blocks: int = 0  # leaf blocks shipped host -> device
     uploaded_points: int = 0       # live points inside those blocks
 
+    def __getitem__(self, key: str) -> int:
+        if key not in self.__dataclass_fields__:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def reset(self) -> dict:
+        """Zero the counters; returns the pre-reset values."""
+        old = self.as_dict()
+        for k in self.__dataclass_fields__:
+            setattr(self, k, 0)
+        return old
+
     def record_export(self, n_blocks: int, n_points: int) -> None:
         self.full_exports += 1
+        self.uploaded_leaf_blocks += int(n_blocks)
+        self.uploaded_points += int(n_points)
+
+    def record_delta(self, n_blocks: int, n_points: int) -> None:
+        self.delta_refreshes += 1
         self.uploaded_leaf_blocks += int(n_blocks)
         self.uploaded_points += int(n_points)
 
@@ -122,6 +145,32 @@ def _bf16(u16: np.ndarray, device) -> torch.Tensor:
     ``torch.bfloat16`` tensor: a reinterpretation, no rounding."""
     t = torch.from_numpy(np.ascontiguousarray(u16).view(np.int16))
     return t.view(torch.bfloat16).to(device)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _upload_levels(blocks: list, n_slots: int, compressed: bool, device):
+    """Host level blocks (``NodeTable.level_blocks``) -> the per-depth
+    ``levels`` and ``terminals`` tuples of a ``DeviceTable``, and with
+    ``compressed`` the bf16 ``levels_c`` (else None).  A row is terminal
+    (a leaf or cold row) when its slot is below ``n_slots`` = leaves +
+    cold rows; branches carry the sentinel slot ``n_slots``.  Shared by
+    the full export and the delta refresh, whose slot numbering moves
+    with every graft."""
+    levels, terminals, levels_c = [], [], []
+    for lv in blocks:
+        slot = lv["slot"].astype(np.int64)
+        term = np.flatnonzero(slot < n_slots)
+        levels.append((_upload(lv["lo"], device), _upload(lv["hi"], device),
+                       _upload(lv["parent"].astype(np.int64), device)))
+        terminals.append((_upload(term, device), _upload(slot[term], device)))
+        if compressed:
+            lo_c, hi_c = ((lv["lo_c"], lv["hi_c"]) if "lo_c" in lv
+                          else compress_boxes_bf16(lv["lo"], lv["hi"]))
+            levels_c.append((_bf16(lo_c, device), _bf16(hi_c, device)))
+    return tuple(levels), tuple(terminals), tuple(levels_c) if compressed else None
 
 
 @dataclasses.dataclass
@@ -137,7 +186,10 @@ class DeviceTable:
     sentinel slot, are never written).  A partial export
     carries the unrefined rows' boxes in ``cold_lo``/``cold_hi``; a
     compressed one carries outward-rounded bf16 copies of every bound
-    column (``leaf_lo_c``/``leaf_hi_c``, ``levels_c``).
+    column (``leaf_lo_c``/``leaf_hi_c``, ``levels_c``).  The host maps
+    ``leaf_rows``/``cold_rows`` name the table row behind each slot: what
+    :meth:`apply_delta` extends after the host grafts new subtrees and
+    :meth:`remap_rows` rebases after ``NodeTable.compact``.
     """
 
     leaf_pts: torch.Tensor     # (L, S, d) f32 leaf-blocked points, pad = f32 max
@@ -154,6 +206,8 @@ class DeviceTable:
     levels_c: tuple = None          # per depth: (lo_c, hi_c) bf16
     n_points: int = 0
     upload_stats: UploadStats = None
+    leaf_rows: np.ndarray = None    # (L,) table row behind each leaf slot
+    cold_rows: np.ndarray = None    # (U,) table row behind each cold slot
 
     @property
     def compressed(self) -> bool:
@@ -181,8 +235,10 @@ class DeviceTable:
 
     @functools.cached_property
     def host_ids(self) -> np.ndarray:
-        """Host copy of ``leaf_ids``, made at first use and kept: the
-        first-generation window path packs its ids on the host."""
+        """Host copy of ``leaf_ids``: the first-generation window path
+        packs its ids on the host.  The export and the delta refresh seed
+        it with the blocks they uploaded; otherwise it is copied from the
+        device at first use and kept."""
         return self.leaf_ids.cpu().numpy()
 
     def live_points(self) -> int:
@@ -207,41 +263,31 @@ class DeviceTable:
         lay = table.device_layout(np.asarray(points), partial=partial,
                                   compressed=compressed)
         n_leaves = lay["leaf_pts"].shape[0]
-        n_slots = n_leaves + len(lay["cold_rows"])
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        levels, terminals = [], []
-        for lv in lay["levels"]:
-            slot = lv["slot"].astype(np.int64)
-            term = np.flatnonzero(slot < n_slots)
-            levels.append((up(lv["lo"]), up(lv["hi"]),
-                           up(lv["parent"].astype(np.int64))))
-            terminals.append((up(term), up(slot[term])))
+        levels, terminals, levels_c = _upload_levels(
+            lay["levels"], n_leaves + len(lay["cold_rows"]), compressed, dev)
         n_points = int(lay["leaf_counts"].sum())
         sink = stats if stats is not None else UploadStats()
         sink.record_export(n_leaves, n_points)
-        return cls(
-            leaf_pts=up(lay["leaf_pts"]),
-            leaf_ids=up(lay["leaf_ids"]),
-            leaf_counts=up(lay["leaf_counts"]),
-            leaf_lo=up(lay["leaf_lo"]),
-            leaf_hi=up(lay["leaf_hi"]),
-            levels=tuple(levels),
-            terminals=tuple(terminals),
-            cold_lo=up(lay["cold_lo"]),
-            cold_hi=up(lay["cold_hi"]),
+        out = cls(
+            leaf_pts=_upload(lay["leaf_pts"], dev),
+            leaf_ids=_upload(lay["leaf_ids"], dev),
+            leaf_counts=_upload(lay["leaf_counts"], dev),
+            leaf_lo=_upload(lay["leaf_lo"], dev),
+            leaf_hi=_upload(lay["leaf_hi"], dev),
+            levels=levels,
+            terminals=terminals,
+            cold_lo=_upload(lay["cold_lo"], dev),
+            cold_hi=_upload(lay["cold_hi"], dev),
             leaf_lo_c=_bf16(lay["leaf_lo_c"], dev) if compressed else None,
             leaf_hi_c=_bf16(lay["leaf_hi_c"], dev) if compressed else None,
-            levels_c=(
-                tuple((_bf16(lv["lo_c"], dev), _bf16(lv["hi_c"], dev))
-                      for lv in lay["levels"])
-                if compressed else None
-            ),
+            levels_c=levels_c,
             n_points=n_points,
             upload_stats=sink,
+            leaf_rows=lay["leaf_rows"],
+            cold_rows=lay["cold_rows"],
         )
+        out.host_ids = lay["leaf_ids"]
+        return out
 
     @classmethod
     def from_index(cls, index, *, compressed: bool = False,
@@ -250,6 +296,95 @@ class DeviceTable:
         """From a built ``core.fmbi.Index`` (table + dataset)."""
         return cls.from_table(index.table, index.points, compressed=compressed,
                               stats=stats, device=device)
+
+    def apply_delta(self, table: NodeTable, points: np.ndarray) -> "DeviceTable":
+        """Incremental refresh after host-side grafts: returns a *new*
+        ``DeviceTable`` (double-buffered: the caller keeps serving this
+        one until it swaps) in which only the freshly grafted leaf blocks
+        are uploaded from the host.
+
+        Grafting never changes an existing refined leaf (it refines an
+        unrefined row in place and appends new rows), so every leaf slot
+        this export holds stays valid verbatim: the point and id blocks
+        are extended on the device (old blocks are reused, padded there
+        to a wider slot count, f32 max and id -1, if a new leaf is fuller
+        than any before) and only the new leaves' blocks cross from the
+        host.  The O(n_nodes) traversal metadata (level blocks, leaf and
+        cold boxes, fill counts, the terminal slots, and on a compressed
+        export its re-rounded bf16 bounds) is rebuilt on the host and
+        uploaded whole: cold slots are renumbered with every graft.
+        """
+        if self.leaf_rows is None:
+            raise ValueError(
+                "delta refresh needs the host scaffolding (leaf_rows); "
+                "re-export with DeviceTable.from_table"
+            )
+        dev = self.device
+        d = self.dim
+        old_rows = self.leaf_rows
+        known = np.zeros(table.n_nodes, dtype=bool)
+        known[old_rows] = True
+        rows_now = table.leaf_rows()
+        new_rows = rows_now[~known[rows_now]]
+        leaf_rows = np.concatenate([old_rows, new_rows])
+        counts_new = table.leaf_count[new_rows]
+        s_old = self.leaf_size
+        s = max(s_old, int(counts_new.max()) if len(counts_new) else 1)
+        lp, li = self.leaf_pts, self.leaf_ids
+        ids_host = self.host_ids
+        if s > s_old:  # widen the existing blocks on the device
+            l_old = self.n_leaves
+            lp = torch.cat([lp, lp.new_full((l_old, s - s_old, d), BIG)], dim=1)
+            li = torch.cat([li, li.new_full((l_old, s - s_old), -1)], dim=1)
+            ids_host = np.pad(ids_host, ((0, 0), (0, s - s_old)),
+                              constant_values=-1)
+        if len(new_rows):
+            nb_pts, nb_ids = table.pack_leaf_blocks(
+                new_rows, np.asarray(points), s, np.float32)
+            lp = torch.cat([lp, _upload(nb_pts, dev)])
+            li = torch.cat([li, _upload(nb_ids, dev)])
+            ids_host = np.concatenate([ids_host, nb_ids])
+        cold = np.flatnonzero(table.unrefined)
+        blocks = table.level_blocks(table.slot_map(leaf_rows, cold), np.float32)
+        levels, terminals, levels_c = _upload_levels(
+            blocks, len(leaf_rows) + len(cold), self.compressed, dev)
+        counts = table.leaf_count[leaf_rows].astype(np.int32)
+        new_lo = table.mbb_lo[leaf_rows].astype(np.float32)
+        new_hi = table.mbb_hi[leaf_rows].astype(np.float32)
+        if self.compressed:
+            lo_c, hi_c = compress_boxes_bf16(new_lo, new_hi)
+            leaf_lo_c, leaf_hi_c = _bf16(lo_c, dev), _bf16(hi_c, dev)
+        else:
+            leaf_lo_c = leaf_hi_c = None
+        self.upload_stats.record_delta(len(new_rows), int(counts_new.sum()))
+        out = DeviceTable(
+            leaf_pts=lp,
+            leaf_ids=li,
+            leaf_counts=_upload(counts, dev),
+            leaf_lo=_upload(new_lo, dev),
+            leaf_hi=_upload(new_hi, dev),
+            levels=levels,
+            terminals=terminals,
+            cold_lo=_upload(table.mbb_lo[cold].astype(np.float32), dev),
+            cold_hi=_upload(table.mbb_hi[cold].astype(np.float32), dev),
+            leaf_lo_c=leaf_lo_c,
+            leaf_hi_c=leaf_hi_c,
+            levels_c=levels_c,
+            n_points=int(counts.sum()),
+            upload_stats=self.upload_stats,
+            leaf_rows=leaf_rows,
+            cold_rows=cold,
+        )
+        out.host_ids = ids_host
+        return out
+
+    def remap_rows(self, remap: np.ndarray) -> None:
+        """Rebase the host maps after ``NodeTable.compact`` (renumbering
+        rows changes no leaf content, so the device tensors stay)."""
+        if self.leaf_rows is not None:
+            self.leaf_rows = remap[self.leaf_rows]
+        if self.cold_rows is not None:
+            self.cold_rows = remap[self.cold_rows]
 
 
 # --------------------------------------------------------------------------

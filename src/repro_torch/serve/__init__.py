@@ -1,5 +1,17 @@
-"""Serving layer of the PyTorch port: batched k-NN retrieval over the
-balanced grid index (``RetrievalServer``)."""
-from .engine import RetrievalServer, RetrievalStats
+"""Serving layer of the PyTorch port: window and k-NN serving over a
+``NodeTable``, static or adaptive over AMBI (``DeviceQueryServer``), with
+its resilience plane and fault injection, and batched k-NN retrieval over
+the balanced grid index (``RetrievalServer``)."""
+from .engine import DeviceQueryServer, DeviceQueryStats, RetrievalServer, RetrievalStats
+from .faults import FaultPlan, FaultRule
+from .resilience import RetryPolicy
 
-__all__ = ["RetrievalServer", "RetrievalStats"]
+__all__ = [
+    "DeviceQueryServer",
+    "DeviceQueryStats",
+    "FaultPlan",
+    "FaultRule",
+    "RetrievalServer",
+    "RetrievalStats",
+    "RetryPolicy",
+]

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import (
+    AMBI,
     DeviceTable,
     PageStore,
     bulk_load,
@@ -25,7 +26,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.datasets import osm_like
 from repro_torch.kernels import knn_topk, launches, ops, partition_assign, ref, window_filter
-from repro_torch.serve import RetrievalServer
+from repro_torch.serve import DeviceQueryServer, RetrievalServer
 
 F32_MAX = np.finfo(np.float32).max
 
@@ -127,6 +128,93 @@ def test_engine_on_the_card_matches_the_plain_engine(cuda, compressed):
     engine = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
     assert all(counts[k] > 0 for k in engine), counts
 
+
+
+def _hotspots(rng, steps, per_step):
+    centres = (np.full(2, 0.3), np.full(2, 0.7))
+    return [(centres[s % 2] + rng.random((per_step, 2)) * 0.08)
+            .astype(np.float32).astype(np.float64) for s in range(steps)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compressed", [False, True])
+def test_adaptive_server_on_the_card_matches_the_cpu_server(cuda, compressed):
+    """The adaptive ``DeviceQueryServer`` on the card against the same
+    server on the CPU over a hotspot stream: equal answers, serving and
+    upload counters and AMBI tables; the four main-path kernels launched,
+    and no retry, host fallback or degraded answer hid a device fault."""
+    pts = np.random.default_rng(1).random((60_000, 2)).astype(np.float32).astype(np.float64)
+    servers = [DeviceQueryServer.from_ambi(AMBI(pts, 80), microbatch=16,
+                                           compressed=compressed, device=dev)
+               for dev in (None, "cpu")]
+    assert servers[0].dev.device.type == "cuda"
+    launches.reset()
+    for batch in _hotspots(np.random.default_rng(2), 8, 16):
+        los, his = batch - 0.01, batch + 0.01
+        got, want = (srv.window(los, his) for srv in servers)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.sort(a), np.sort(b))
+        got, want = (srv.knn(batch, 16) for srv in servers)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    counts = launches.counts()
+    engine = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
+    assert all(counts[k] > 0 for k in engine), counts
+    card, cpu = servers
+    assert card.stats == cpu.stats
+    assert card.upload_stats == cpu.upload_stats
+    assert card.stats.delta_refreshes > 0 and card.stats.hot_queries > 0
+    assert card.stats.retries == card.stats.host_fallbacks == 0
+    assert card.stats.degraded_queries == 0
+    for c in ("mbb_lo", "mbb_hi", "perm", "unrefined", "leaf_count"):
+        np.testing.assert_array_equal(getattr(card.ambi.table, c),
+                                      getattr(cpu.ambi.table, c))
+    np.testing.assert_array_equal(card.dev.leaf_ids.cpu().numpy(), card.dev.host_ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compressed", [False, True])
+def test_apply_delta_widening_on_the_card(cuda, compressed):
+    """A delta whose new leaves are fuller than every leaf on the card
+    pads the old blocks there (f32 max, id -1) and answers as a fresh
+    export does."""
+    import dataclasses
+
+    pts = np.random.default_rng(3).random((40_000, 2)).astype(np.float32).astype(np.float64)
+    ambi = AMBI(pts, 80)
+    for c in (0.25, 0.5, 0.75):
+        ambi.window(np.full(2, c - 0.02), np.full(2, c + 0.02))
+    full = DeviceTable.from_table(ambi.table, pts, partial=True, compressed=compressed)
+    counts = full.leaf_counts.cpu().numpy()
+    keep = np.flatnonzero(counts < counts.max())
+    s = int(counts[keep].max())
+    kt = torch.from_numpy(keep).to(cuda)
+    old = dataclasses.replace(
+        full, leaf_pts=full.leaf_pts[kt, :s].contiguous(),
+        leaf_ids=full.leaf_ids[kt, :s].contiguous(), leaf_counts=full.leaf_counts[kt],
+        leaf_lo=full.leaf_lo[kt], leaf_hi=full.leaf_hi[kt],
+        leaf_lo_c=full.leaf_lo_c[kt] if compressed else None,
+        leaf_hi_c=full.leaf_hi_c[kt] if compressed else None,
+        n_points=int(counts[keep].sum()), leaf_rows=full.leaf_rows[keep])
+    old.host_ids = old.leaf_ids.cpu().numpy()
+    dev = old.apply_delta(ambi.table, pts)
+    assert dev.device.type == "cuda"
+    assert old.leaf_size == s < dev.leaf_size == full.leaf_size
+    assert bool((dev.leaf_ids[: len(keep), s:] == -1).all())
+    np.testing.assert_array_equal(dev.leaf_ids.cpu().numpy(), dev.host_ids)
+    c = np.random.default_rng(4).random((64, 2)).astype(np.float32)
+    los, his = c - np.float32(0.03), c + np.float32(0.03)
+    launches.reset()
+    (gw, gc), (fw, fc) = (window_query_batch_torch(t, los, his, return_cold=True)
+                          for t in (dev, full))
+    np.testing.assert_array_equal(gc, fc)
+    for a, b in zip(gw, fw):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+    (_, gd), (_, fd) = (knn_query_batch_torch(t, c, 8, return_dists=True)
+                        for t in (dev, full))
+    for a, b in zip(gd, fd):
+        np.testing.assert_array_equal(a, b)
+    assert launches.counts()["pair_window_ids"] > 0
 
 def _retrieval_inputs(rng, d, nq=300, npp=700, n=5000, levels=7):
     q = rng.random((nq, d)).astype(np.float32)

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DeviceTable, PageStore, bulk_load
+from repro_torch.core import AMBI, DeviceTable, PageStore, bulk_load
 from repro_torch.core import grid_index as GI
 from repro_torch.core import queries_torch as QT
 from repro_torch.kernels import knn_topk, launches, ops, partition_assign, window_filter
-from repro_torch.serve import RetrievalServer
+from repro_torch.serve import DeviceQueryServer, RetrievalServer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -62,7 +62,10 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.core.queries_torch, "
         "repro_torch.kernels.ops, repro_torch.core.datasets, "
-        "repro_torch.core.grid_index, repro_torch.serve.engine\n"
+        "repro_torch.core.grid_index, repro_torch.serve.engine, "
+        "repro_torch.core.ambi, repro_torch.core.queries, "
+        "repro_torch.core.distributed_torch, repro_torch.serve.resilience, "
+        "repro_torch.serve.faults, repro_torch.analysis.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -88,9 +91,14 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
         DeviceTable.from_table(idx.table, idx.points, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         idx.table.to_device(idx.points)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.from_index(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.from_ambi(AMBI(idx.points, 60))
     dev = idx.table.to_device(idx.points, device="cpu")
     assert dev.device.type == "cpu"
     assert QT.resolve_device("cpu") == torch.device("cpu")
+    assert DeviceQueryServer.from_index(idx, device="cpu").dev.device.type == "cpu"
 
 
 def test_grid_index_and_server_need_cuda_or_cpu(monkeypatch, tmp_path):
@@ -184,6 +192,10 @@ def test_cpu_path_launches_no_kernel():
     srv.knn(c, 4)
     srv.knn_kernel(c, 4)
     GI.window_count(srv.index, c - 0.1, c + 0.1)
+    adaptive = DeviceQueryServer.from_ambi(AMBI(idx.points, 4), device="cpu")
+    adaptive.window(c - 0.1, c + 0.1)
+    adaptive.knn(c, 4)
+    assert adaptive.stats.hot_queries > 0
     assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
 
 
