@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main, serving, first-generation and retrieval
-paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's main, serving, streaming, first-generation and
+retrieval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -44,6 +44,35 @@ Phases (any failure exits non-zero; nothing is caught):
    device fault).  Then ``window_hot``/``knn_hot`` over phase 3's first 64
    windows and queries: a certificate is incomplete exactly where the
    query reaches cold space, and complete answers equal the brute force.
+3s. Streaming, right after 3a on the same points rounded to f32:
+   ``StreamingIndex(points, buffer_pages=1466)`` bulk loads the base tier
+   and ``DeviceQueryServer.from_streaming`` (microbatches of 64, a journal
+   and a snapshot in a temporary directory) exports its mirror.  The
+   reference's streaming traffic (``bench_hotpaths``): 32 inserts of 1024
+   uniform points (``default_rng(5)``, rounded to f32); after every fourth,
+   32 base and 16 inserted rows deleted (``default_rng(17)``); after every
+   eighth, phase 3's first 64 windows and 64 k-NN queries (k = 16, rounded
+   to f32).  The counts are zeroed before the first insert and read after
+   the last round; the four main-path kernels must have launched.  The
+   base tier never merges, so its 256 tombstones make the last round's
+   k-NN over-fetch ``k_eff`` = 512 rows, more than a leaf's 341 slots.
+   The run must flush, fuse and rebuild-merge; one full export (the boot)
+   and one delta per sync; the export never stale; no retry, host
+   fallback or degraded answer; no deleted id in any answer, and the first
+   16 windows and k-NN queries of each round equal a brute force over the
+   live rows.  Then a ``Frontend`` over the server (a virtual-clock burst
+   of 256 mixed requests at ``queue_bound`` 64, and 64 in real time):
+   admitted answers equal the server's, rejected ones carry certificates.
+   The server is dropped without a barrier (what a kill leaves) and
+   ``recover`` must replay the 40 journaled ops and answer the last
+   round's queries as the live server did.  Phase 3a's adaptive server
+   then takes 1024 inserts and 16 deletes into a streaming overlay and
+   answers a window and a k-NN batch against the brute force.  Last, an
+   adaptive server over ``osm_like(1_000_000)`` (rounded to f32) with a
+   journal, ``compact_slack=0`` (compaction barriers) and a hotspot
+   stream of 4 + 4 batches is killed and recovered: equal tables in every
+   column and equal answers.  Its timings: bulk load, points per second,
+   every ``apply_delta``, warm batches, checkpoints and recovery.
 3u. First-generation engine (``fused=False``) on phase 3's two exports,
    the same windows and k-NN queries, three runs each, counts zeroed
    before and read after: ``box_hits``, ``window_mask_gathered``,
@@ -86,12 +115,15 @@ Phases (any failure exits non-zero; nothing is caught):
    stream's first (largest), smallest and last (the one-row root level at
    boot, cold slots, the leaf blocks that ``apply_delta`` appended).  The
    same comparison runs at d = 5, where the six redesigned kernels
-   (``TIMED_D5``) are timed too.  Each phase also counts its launches by
+   (``TIMED_D5``) are timed too.  Phase 3s's calls (``<dtype>:stream``,
+   its last k-NN round at ``k_eff`` = 512 among them) are held the same
+   way, untimed.  Each phase also counts its launches by
    shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
-k-NN batch (phase 3a's first batch, replayed), of the fused window batch's
+k-NN batch (phase 3a's first batch, replayed), of phase 3s's window and
+k-NN batch on the multi-tier state, of the fused window batch's
 frontier alone (``box_hits`` and the mask operations around it), and of
 the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
@@ -788,8 +820,367 @@ def serving_path(tag, pts, inputs, buffer_pages, full_leaves, k, torch, rt, laun
             "knn": lambda: srv.knn(b, k)}, torch)
         log(f"[{tag}] profile (hot replay batches): {out['profile']}")
     out["launch_shapes"] = recorder.shapes
-    del srv, ambi, windows
+    # phase 3s grows a streaming overlay on this server
+    inputs["adaptive"] = {"srv": srv, "windows": windows, "batch": stream[0], "hw": hw}
+    del ambi
     return out, {**static_rec.calls, **recorder.calls}
+
+
+# --------------------------------------------------------------------------
+# phase 3s: streaming ingest, recovery, the adaptive overlay, the frontend
+# --------------------------------------------------------------------------
+def live_knn(pts32, p64, live, q, k, pre=64):
+    """The ``k`` nearest live rows of ``q`` by f64 distance, ties by id (the
+    streaming contract): an f32 brute force over every point picks ``pre``
+    candidates among the live rows, f64 ranks them."""
+    d32 = brute_d2(pts32, q.astype(np.float32))
+    d32[~live] = np.inf
+    cand = np.argpartition(d32, pre)[:pre]
+    d64 = np.sum((p64[cand] - q) ** 2, axis=1)
+    return cand[np.lexsort((cand, d64))[:k]]
+
+
+def check_live_answers(tag, points, live, los, his, qs, wres, kres, k, n_check):
+    """No tombstoned id in any answer; the first ``n_check`` windows and
+    k-NN queries equal a brute force over the live rows."""
+    dead = ~live
+    for kind, res in (("window", wres), ("knn", kres)):
+        bad = [i for i, ids in enumerate(res) if dead[np.asarray(ids, dtype=np.int64)].any()]
+        if bad:
+            raise AssertionError(f"[{tag}] deleted ids in {kind} answers {bad[:5]}")
+    pts32 = points.astype(np.float32)
+    lo32, hi32 = los.astype(np.float32), his.astype(np.float32)
+    for i in range(n_check):
+        want = brute_window(pts32, lo32[i], hi32[i])
+        if not np.array_equal(np.sort(wres[i]), want[live[want]]):
+            raise AssertionError(f"[{tag}] window {i} differs from the brute force")
+        if not np.array_equal(kres[i], live_knn(pts32, points, live, qs[i], k)):
+            raise AssertionError(f"[{tag}] k-NN query {i} differs from the brute force")
+
+
+# the reference's streaming traffic (bench_hotpaths): 32 inserts of 1024
+# points, 64-query batches; the first 16 answers of a batch are brute-forced
+STREAM_INSERTS, STREAM_PER_INSERT, STREAM_BATCH, STREAM_CHECK = 32, 1024, 64, 16
+
+
+def streaming_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches,
+                   device="cuda", durable_n=1_000_000, smi="", profile=False):
+    """Phase 3s: ``DeviceQueryServer.from_streaming`` over a
+    ``StreamingIndex`` of phase 3's points rounded to f32, journaled, fed
+    the reference's streaming traffic (``bench_hotpaths``: 32 inserts of
+    1024 uniform points from ``default_rng(5)``), with 32 base and 16
+    inserted rows deleted (``default_rng(17)``) after every fourth insert
+    and phase 3's first 64 windows and k-NN queries (rounded to f32)
+    after every eighth, the launch counts zeroed before and read after;
+    then a ``Frontend`` over it, a kill and ``recover``; a streaming
+    overlay on phase 3a's adaptive server; and an adaptive server's
+    journal, compaction barrier and recovery over ``durable_n`` points.
+    Returns the measurements and the kernel calls of the ingest and its
+    queries, recorded under ``<dtype>:stream`` (first, smallest and last
+    call: the last k-NN batch runs at ``k_eff`` = 512)."""
+    import shutil
+
+    from repro_torch.core.datasets import osm_like
+    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Frontend, VirtualClock
+
+    out = {"k": k, "buffer_pages": buffer_pages, "nvidia_smi": smi}
+    w_lo, w_hi, q64 = (x[:STREAM_BATCH].astype(np.float32).astype(np.float64)
+                       for x in (inputs["los"], inputs["his"], inputs["qs"]))
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    Server = rt.DeviceQueryServer
+    delta_s, ckpt_s = [], []
+    orig_delta, orig_ckpt = rt.DeviceTable.apply_delta, Server._checkpoint_locked
+
+    def timed_delta(dev, table, points):
+        t = time.perf_counter()
+        new = orig_delta(dev, table, points)
+        torch.cuda.synchronize()
+        delta_s.append(time.perf_counter() - t)
+        return new
+
+    def timed_ckpt(srv):
+        t = time.perf_counter()
+        orig_ckpt(srv)
+        ckpt_s.append(time.perf_counter() - t)
+
+    try:
+        rt.DeviceTable.apply_delta, Server._checkpoint_locked = timed_delta, timed_ckpt
+        # -- boot: the base tier's bulk load, the export, the boot barrier
+        p = pts.astype(np.float32).astype(np.float64)
+        t0 = time.perf_counter()
+        stream = rt.StreamingIndex(p, buffer_pages=buffer_pages)
+        out["base_load_s"] = time.perf_counter() - t0
+        del p
+        t0 = time.perf_counter()
+        srv = Server.from_streaming(stream, microbatch=STREAM_BATCH,
+                                    journal_path=tmp / "ops.journal",
+                                    snapshot_path=tmp / "snap.npz", device=device)
+        torch.cuda.synchronize()
+        out["boot_s"] = time.perf_counter() - t0
+        out["boot_checkpoint_s"] = ckpt_s[0]
+        n0, s_leaf = stream.n_ids, srv.dev.leaf_size
+        log(f"[{tag}] base tier of {n0} points: bulk load {out['base_load_s']:.3f} s; boot "
+            f"{out['boot_s']:.3f} s (boot barrier {out['boot_checkpoint_s']:.3f} s); "
+            f"{srv.dev.n_leaves} leaves of <= {s_leaf} slots; {smi}")
+
+        # -- ingest with deletes and query rounds, counts zeroed around it
+        feed = (np.random.default_rng(5).random((STREAM_INSERTS * STREAM_PER_INSERT, 2))
+                .astype(np.float32).astype(np.float64))
+        drng = np.random.default_rng(17)
+        base_dels = drng.choice(n0, 32 * (STREAM_INSERTS // 4), replace=False)
+        new_dels: list = []
+        insert_s, rounds, answers = [], [], []
+
+        def fresh():
+            if srv._stream_is_stale():
+                raise AssertionError(f"[{tag}] the device export went stale")
+
+        recorder = Recorder(ops, MAIN_PATH, suffix=":stream", last=True)
+        launches.reset()
+        with recorder:
+            for i in range(STREAM_INSERTS):
+                t = time.perf_counter()
+                srv.insert(feed[i * STREAM_PER_INSERT:(i + 1) * STREAM_PER_INSERT])
+                torch.cuda.synchronize()
+                insert_s.append(time.perf_counter() - t)
+                fresh()
+                if (i + 1) % 4 == 0:
+                    j = (i + 1) // 4 - 1
+                    ins = np.setdiff1d(np.arange(n0, stream.n_ids), new_dels)
+                    new = drng.choice(ins, 16, replace=False)
+                    new_dels.extend(new.tolist())
+                    srv.delete(np.concatenate([base_dels[32 * j:32 * (j + 1)], new]))
+                    fresh()
+                if (i + 1) % 8 == 0:
+                    k_eff = srv._k_eff(k)
+                    t = time.perf_counter()
+                    wres = srv.window(w_lo, w_hi)
+                    w_s = time.perf_counter() - t
+                    t = time.perf_counter()
+                    kres = srv.knn(q64, k)
+                    k_s = time.perf_counter() - t
+                    fresh()
+                    rounds.append({"after_insert": i + 1, "k_eff": k_eff, "window_s": w_s,
+                                   "knn_s": k_s, "shadow": stream.shadow,
+                                   "tiers": len(stream.tiers), "leaves": srv.dev.n_leaves})
+                    answers.append((wres, kres, stream.live_mask().copy()))
+                    log(f"[{tag}] round {rounds[-1]}")
+        counts = launches.counts()
+        st, up = srv.stats, srv.upload_stats
+        n_fed = STREAM_INSERTS * STREAM_PER_INSERT
+        out.update(insert_s=insert_s, points_per_s=n_fed / sum(insert_s),
+                   rounds=rounds, launches=counts, launch_shapes=recorder.shapes,
+                   apply_delta_s=list(delta_s), stats=dict(vars(st)),
+                   upload_stats=up.as_dict(),
+                   stream={c: getattr(stream, c) for c in
+                           ("flushes", "fusions", "merges", "point_reallocs", "shadow")})
+        log(f"[{tag}] {STREAM_INSERTS} inserts of {STREAM_PER_INSERT}: "
+            f"{out['points_per_s']:.1f} points/s "
+            f"(insert walls {[round(x, 4) for x in insert_s]}); {len(delta_s)} apply_delta "
+            f"swaps {[round(x, 4) for x in delta_s]}; stream {out['stream']}; {st}; uploads "
+            f"{up.as_dict()}; launches {counts}; {smi}")
+        missing = [kk for kk in MAIN_PATH if counts[kk] == 0]
+        if missing:
+            raise AssertionError(f"[{tag}] kernels not launched by the streaming run: {missing}")
+        if not (stream.flushes >= 1 and stream.fusions >= 1 and stream.merges >= 1):
+            raise AssertionError(f"[{tag}] the run did not flush, fuse and rebuild-merge: "
+                                 f"{out['stream']}")
+        if rounds[-1]["k_eff"] != 512 or not 512 > s_leaf:
+            raise AssertionError(f"[{tag}] the last round ran at k_eff {rounds[-1]['k_eff']}, "
+                                 f"leaves of {s_leaf} slots; expected 512 > S")
+        if not (up.full_exports == 1 and up.delta_refreshes == st.delta_refreshes
+                == st.stream_syncs > 0):
+            raise AssertionError(f"[{tag}] uploads {up.as_dict()} against {st}")
+        serving_zero_faults(tag, st)
+        for wres, kres, live in answers:   # the rows live at that round
+            check_live_answers(tag, stream.points[:len(live)], live, w_lo, w_hi, q64,
+                               wres, kres, k, STREAM_CHECK)
+        log(f"[{tag}] every round: no deleted id; the first {STREAM_CHECK} windows and k-NN "
+            f"queries equal a brute force over the live rows")
+
+        # -- warm batches on the multi-tier state (bench_hotpaths'
+        # ingest_query_batch_64_s, on the port)
+        warm = {"window_s": [], "knn_s": []}
+        for _ in range(3):
+            for kind, run in (("window_s", lambda: srv.window(w_lo, w_hi)),
+                              ("knn_s", lambda: srv.knn(q64, k))):
+                t = time.perf_counter()
+                run()
+                warm[kind].append(time.perf_counter() - t)
+        out["warm"] = warm
+        log(f"[{tag}] warm 64-query batches on {len(stream.tiers)} tiers: {warm}; {smi}")
+        if profile:
+            out["profile"] = profile_batches({
+                "window": lambda: srv.window(w_lo, w_hi),
+                "knn": lambda: srv.knn(q64, k)}, torch)
+            log(f"[{tag}] profile: {out['profile']}")
+
+        # -- the frontend over the streaming server
+        fl, fh, fq = (x[:128].astype(np.float32).astype(np.float64)
+                      for x in (inputs["los"], inputs["his"], inputs["qs"]))
+        fe = Frontend(srv, clock=VirtualClock(), queue_bound=64, batch_max=STREAM_BATCH,
+                      batch_window_s=0.001)
+        reqs = []
+        for i in range(128):
+            reqs.append(fe.submit_window(fl[i], fh[i]))
+            reqs.append(fe.submit_knn(fq[i], k))
+        t = time.perf_counter()
+        fe.drain()
+        out["frontend_drain_s"] = time.perf_counter() - t
+        ok = [r for r in reqs if r.status == "ok"]
+        if len(ok) != 64 or any(r.status != "rejected" or r.cert.complete
+                                for r in reqs if r.status != "ok"):
+            raise AssertionError(f"[{tag}] frontend burst: {fe.stats}")
+        rt_reqs = []
+        fe_rt = Frontend(srv, queue_bound=256, batch_max=STREAM_BATCH,
+                         batch_window_s=0.002).start()
+        for i in range(32):
+            rt_reqs.append(fe_rt.submit_window(fl[i], fh[i]))
+            rt_reqs.append(fe_rt.submit_knn(fq[i], k))
+        for r in rt_reqs:
+            r.wait(120.0)
+        fe_rt.stop()
+        if any(r.status != "ok" for r in rt_reqs):
+            raise AssertionError(f"[{tag}] real-time frontend: {fe_rt.stats}")
+        for r in ok + rt_reqs:
+            if r.kind == "window":
+                want = srv.window(r.payload[0][None], r.payload[1][None])[0]
+            else:
+                want = srv.knn(r.payload[0][None], k)[0]
+            if not np.array_equal(np.sort(r.ids) if r.kind == "window" else r.ids, want):
+                raise AssertionError(f"[{tag}] a frontend answer differs from the server's")
+        out["frontend"] = {"burst": dict(vars(fe.stats)), "realtime": dict(vars(fe_rt.stats))}
+        log(f"[{tag}] frontend: burst of 256 at queue_bound 64 {out['frontend']['burst']}, "
+            f"drained in {out['frontend_drain_s']:.4f} s; real time "
+            f"{out['frontend']['realtime']}; admitted answers equal the server's")
+        serving_zero_faults(tag, srv.stats)
+
+        # -- kill (no barrier after boot) and recover
+        journaled = srv.journal.seq
+        last_w, last_k, _ = answers[-1]
+        calls = recorder.calls
+        del srv, stream, fe, fe_rt, reqs, rt_reqs, ok, answers, recorder
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = Server.recover(tmp / "snap.npz", tmp / "ops.journal", microbatch=STREAM_BATCH,
+                             device=device)
+        torch.cuda.synchronize()
+        out["recover_s"] = time.perf_counter() - t0
+        out["replayed"] = rec.stats.replayed_records
+        n_ops = STREAM_INSERTS + STREAM_INSERTS // 4
+        if not rec.stats.replayed_records == journaled == n_ops:
+            raise AssertionError(f"[{tag}] recovery replayed {rec.stats.replayed_records} of "
+                                 f"{journaled} journaled ops, expected {n_ops}")
+        rw, rk = rec.window(w_lo, w_hi), rec.knn(q64, k)
+        if not (all(np.array_equal(a, b) for a, b in zip(rw, last_w))
+                and all(np.array_equal(a, b) for a, b in zip(rk, last_k))):
+            raise AssertionError(f"[{tag}] the recovered server answers differently")
+        serving_zero_faults(tag, rec.stats)
+        log(f"[{tag}] kill and recover: {out['recover_s']:.3f} s, {out['replayed']} records "
+            f"replayed; 64 + 64 answers equal the live server's; {smi}")
+        del rec, last_w, last_k
+        torch.cuda.empty_cache()
+
+        # -- a streaming overlay on phase 3a's adaptive server
+        a = inputs.pop("adaptive")
+        asrv, hw = a["srv"], a["hw"]
+        b = a["batch"]
+        # phase 3a's brownout tier left degraded answers in the counters
+        faults0 = {f: getattr(asrv.stats, f)
+                   for f in ("retries", "host_fallbacks", "degraded_queries")}
+        orng = np.random.default_rng(23)
+        new_pts = (b[orng.integers(0, len(b), 1024)] + (orng.random((1024, 2)) - 0.5) * 0.02
+                   ).astype(np.float32).astype(np.float64)
+        t = time.perf_counter()
+        new_ids = asrv.insert(new_pts)
+        out["overlay_insert_s"] = time.perf_counter() - t
+        before = np.unique(np.concatenate(asrv.window(b - hw, b + hw)))
+        before = before[before < new_ids[0]]
+        dels = np.concatenate([orng.choice(before, 8, replace=False),
+                               orng.choice(new_ids, 8, replace=False)])
+        asrv.delete(dels)
+        t = time.perf_counter()
+        ow = asrv.window(b - hw, b + hw)
+        ok_s = time.perf_counter() - t
+        t = time.perf_counter()
+        okn = asrv.knn(b, k)
+        out["overlay"] = {"window_s": ok_s, "knn_s": time.perf_counter() - t,
+                          "k_eff": asrv._k_eff(k), "stats": dict(vars(asrv.stats))}
+        ostream = asrv.stream
+        check_live_answers(tag + " overlay", ostream.points, ostream.live_mask(), b - hw,
+                           b + hw, b, ow, okn, k, STREAM_CHECK)
+        grew = {f: getattr(asrv.stats, f) - v for f, v in faults0.items()
+                if getattr(asrv.stats, f) != v}
+        if grew:
+            raise AssertionError(f"[{tag} overlay] the resilience plane absorbed device "
+                                 f"faults: {grew}")
+        log(f"[{tag}] overlay on phase 3a's adaptive server: 1024 inserted, 16 deleted; "
+            f"{out['overlay']}; no deleted id, the first {STREAM_CHECK} windows and k-NN "
+            f"queries equal a brute force")
+        del asrv, a, ostream
+
+        # -- adaptive durability at a smaller depth
+        dp = osm_like(durable_n, seed=7).astype(np.float32).astype(np.float64)
+        dbuf = max(int(-(-durable_n // leaf_capacity(2)) * 0.05), branch_capacity(2) + 1)
+        ddir, kdir = tmp / "adaptive", tmp / "killed"
+        ddir.mkdir()
+        dsrv = Server.from_ambi(rt.AMBI(dp, dbuf), microbatch=STREAM_BATCH, compact_slack=0.0,
+                                journal_path=ddir / "ops.journal",
+                                snapshot_path=ddir / "snap.npz", device=device)
+        rng = np.random.default_rng(13)
+        centres = dp[rng.integers(0, len(dp), 4)]
+        batches = [(centres[s % 2] + rng.random((STREAM_BATCH, 2)) * 0.08)
+                   .astype(np.float32).astype(np.float64) for s in range(4)]
+        t0 = time.perf_counter()
+        for batch in batches:
+            dsrv.window(batch - 0.01, batch + 0.01)
+            dsrv.knn(batch, k)
+        out_d = {"n": durable_n, "buffer_pages": dbuf, "stream_s": time.perf_counter() - t0,
+                 "compactions": dsrv.stats.compactions, "checkpoints": dsrv.stats.checkpoints}
+        if dsrv.stats.compactions < 1:
+            raise AssertionError(f"[{tag}] no compaction at compact_slack=0: {dsrv.stats}")
+        dsrv.compact_slack = 1e9   # no barrier after the last one: replay has work
+        tail = [(c + rng.random((STREAM_BATCH, 2)) * 0.08).astype(np.float32).astype(np.float64)
+                for c in centres[2:]]
+        for batch in tail:
+            dsrv.window(batch - 0.01, batch + 0.01)
+        shutil.copytree(ddir, kdir)   # what a kill leaves
+        t0 = time.perf_counter()
+        drec = Server.recover(kdir / "snap.npz", kdir / "ops.journal", microbatch=STREAM_BATCH,
+                              compact_slack=1e9, device=device)
+        torch.cuda.synchronize()
+        out_d.update(recover_s=time.perf_counter() - t0,
+                     replayed=drec.stats.replayed_records,
+                     checkpoint_s=list(ckpt_s[1:]))
+        if drec.stats.replayed_records < 1:
+            raise AssertionError(f"[{tag}] the adaptive recovery replayed nothing")
+        for srv_ in (dsrv, drec):
+            serving_zero_faults(tag + " adaptive durability", srv_.stats)
+        probe = [(c + rng.random((STREAM_BATCH, 2)) * 0.08).astype(np.float32).astype(np.float64)
+                 for c in (centres[0], centres[3])]
+        for c in rt.NodeTable.COLUMNS:
+            if not np.array_equal(getattr(dsrv.ambi.table, c), getattr(drec.ambi.table, c)):
+                raise AssertionError(f"[{tag}] recovered AMBI column {c} differs")
+        for batch in probe:
+            for run in (lambda s: s.window(batch - 0.01, batch + 0.01),
+                        lambda s: s.knn(batch, k)):
+                if not all(np.array_equal(np.sort(x), np.sort(y))
+                           for x, y in zip(run(dsrv), run(drec))):
+                    raise AssertionError(f"[{tag}] the recovered adaptive server answers "
+                                         f"differently")
+        if not dsrv.ambi.table.equals(drec.ambi.table):
+            raise AssertionError(f"[{tag}] the tables diverged after the same traffic")
+        out["adaptive_durability"] = out_d
+        log(f"[{tag}] adaptive durability over {durable_n} points: {out_d}; the recovered "
+            f"table equals the live one in every column and answers the same; {smi}")
+        out["total_apply_delta_s"] = sum(delta_s)
+        del dsrv, drec, dp
+    finally:
+        rt.DeviceTable.apply_delta, Server._checkpoint_locked = orig_delta, orig_ckpt
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, calls
 
 
 # --------------------------------------------------------------------------
@@ -1248,6 +1639,10 @@ def main(argv=None) -> int:
                                          results["d2"]["buffer_pages"],
                                          results["d2"]["leaves"], 16, torch, rt, launches,
                                          profile=args.profile)
+    results["stream_d2"], stcalls2 = streaming_path("stream d=2", pts, inputs,
+                                                    results["d2"]["buffer_pages"], 16, torch,
+                                                    rt, launches, smi=smi,
+                                                    profile=args.profile)
     results["unfused_d2"], ucalls2 = unfused_path("d=2", inputs, 16, torch, rt, launches,
                                                   profile=args.profile)
     results["window_count_d2"], wcalls2 = window_count_path("d=2", pts, inputs, torch,
@@ -1271,9 +1666,9 @@ def main(argv=None) -> int:
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
     k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
-    # phase 3a's calls (64-query microbatches, the partial export), held
-    # bit for bit but not timed
-    ks = kernel_phase(scalls2, torch, timed=False)
+    # phase 3a's and 3s's calls (64-query microbatches, the partial export,
+    # the streaming mirror's export), held bit for bit but not timed
+    ks = kernel_phase({**scalls2, **stcalls2}, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

@@ -5,7 +5,10 @@ export (``DeviceTable``) and the window and k-NN batches (fused, or the
 first generation with ``fused=False``); serving through
 ``DeviceQueryServer``, static or adaptive over AMBI (hot queries on the
 card's partial export, cold ones refined by the host engine, grafts
-uploaded as deltas); the paper's NumPy engine and oracles; the
+uploaded as deltas) or streaming over a live ``StreamingIndex``
+(inserts and deletes, its tiers mirrored on the card), with a graft
+journal, snapshot barriers and recovery, behind the async ``Frontend``;
+the paper's NumPy engine and oracles; the
 brute-force count ``kernels.ops.window_count``; and the retrieval path:
 the balanced ``GridIndex`` built on the device, its routing, window
 counts and k-NN, served by ``RetrievalServer``.  Ten hand-written Hopper
@@ -20,6 +23,7 @@ from .core import (
     IOStats,
     NodeTable,
     PageStore,
+    StreamingIndex,
     bulk_load,
     knn_oracle,
     knn_query,
@@ -32,6 +36,7 @@ from .serve import (
     DeviceQueryServer,
     DeviceQueryStats,
     FaultPlan,
+    Frontend,
     RetrievalServer,
     RetrievalStats,
     RetryPolicy,
@@ -44,6 +49,7 @@ __all__ = [
     "DeviceQueryStats",
     "DeviceTable",
     "FaultPlan",
+    "Frontend",
     "GridIndex",
     "Index",
     "IOStats",
@@ -52,6 +58,7 @@ __all__ = [
     "RetrievalServer",
     "RetrievalStats",
     "RetryPolicy",
+    "StreamingIndex",
     "bulk_load",
     "knn_oracle",
     "knn_query",

@@ -1,6 +1,6 @@
-"""Host layers (copies of the JAX package's NumPy modules: FMBI, AMBI and
-the NumPy query engine among them), the device query engine and the
-balanced grid index of the port."""
+"""Host layers (copies of the JAX package's NumPy modules: FMBI, AMBI,
+streaming ingest and the NumPy query engine among them), the device query
+engine and the balanced grid index of the port."""
 from .ambi import AMBI
 from .convert import grid_index_from_arrays, index_from_arrays, table_from_arrays
 from .distributed_torch import CompletenessCertificate, ShardUnavailable
@@ -22,10 +22,12 @@ from .queries_torch import (
     knn_query_batch_torch,
     window_query_batch_torch,
 )
+from .streaming import DeviceMirror, StreamingIndex
 
 __all__ = [
     "AMBI",
     "CompletenessCertificate",
+    "DeviceMirror",
     "DeviceTable",
     "GridIndex",
     "Index",
@@ -48,6 +50,7 @@ __all__ = [
     "merge_branches",
     "refine_subspace",
     "ShardUnavailable",
+    "StreamingIndex",
     "table_from_arrays",
     "window_oracle",
     "window_query",

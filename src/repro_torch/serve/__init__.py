@@ -1,9 +1,26 @@
 """Serving layer of the PyTorch port: window and k-NN serving over a
-``NodeTable``, static or adaptive over AMBI (``DeviceQueryServer``), with
-its resilience plane and fault injection, and batched k-NN retrieval over
-the balanced grid index (``RetrievalServer``)."""
-from .engine import DeviceQueryServer, DeviceQueryStats, RetrievalServer, RetrievalStats
+``NodeTable``, static, adaptive over AMBI or streaming
+(``DeviceQueryServer``), with its resilience plane, fault injection,
+graft journal and recovery, the async frontend in front of it
+(``Frontend``), and batched k-NN retrieval over the balanced grid index
+(``RetrievalServer``)."""
+from .engine import (
+    DeviceQueryServer,
+    DeviceQueryStats,
+    RetrievalServer,
+    RetrievalStats,
+    StreamSyncError,
+)
 from .faults import FaultPlan, FaultRule
+from .frontend import (
+    Frontend,
+    FrontendStats,
+    InlineExecutor,
+    Request,
+    VirtualClock,
+    WorkerExecutor,
+)
+from .journal import GraftJournal, JournalError
 from .resilience import RetryPolicy
 
 __all__ = [
@@ -11,7 +28,16 @@ __all__ = [
     "DeviceQueryStats",
     "FaultPlan",
     "FaultRule",
+    "Frontend",
+    "FrontendStats",
+    "GraftJournal",
+    "InlineExecutor",
+    "JournalError",
+    "Request",
     "RetrievalServer",
     "RetrievalStats",
     "RetryPolicy",
+    "StreamSyncError",
+    "VirtualClock",
+    "WorkerExecutor",
 ]

@@ -12,8 +12,14 @@ microbatch through the device engine (``core/queries_torch.py``); in
 ``adaptive=True`` mode (boot via ``from_ambi``) it serves a partially
 refined AMBI table: hot queries from the device's partial export, cold
 ones from the host AMBI engine, whose grafts reach the card through
-``DeviceTable.apply_delta``.  The resilience plane (retries, deadlines,
-a breaker for the one device, fault injection) is the reference's.
+``DeviceTable.apply_delta``.  ``from_streaming`` serves a live
+``StreamingIndex`` (``insert``/``delete``, its tiers mirrored on the card
+and shipped as deltas), and an adaptive server grows a streaming overlay
+on its first insert.  With ``journal_path`` and ``snapshot_path`` every
+cold op and every ingest op is journaled before it runs, ``checkpoint``
+writes a snapshot barrier, and ``recover`` reboots a killed server from
+the two.  The resilience plane (retries, deadlines, a breaker for the one
+device, fault injection) is the reference's.
 
 ``RetrievalServer`` in ``adaptive=True`` mode keeps "hot" only the
 leaves that the live query stream touches (the device analogue of the
@@ -26,6 +32,7 @@ raises without a card).
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import OrderedDict
 
 import numpy as np
@@ -33,6 +40,7 @@ import torch
 
 from ..analysis import runtime as _san
 from ..core import grid_index
+from ..core.ambi import AMBI
 from ..core.distributed_torch import CompletenessCertificate, ShardUnavailable
 from ..core.geometry import boxes_intersect_windows, boxes_mindist_sq
 from ..core.nodetable import NodeTable
@@ -43,8 +51,10 @@ from ..core.queries_torch import (
     resolve_device,
     window_query_batch_torch,
 )
+from ..core.streaming import DeviceMirror, StreamingIndex
 from ..kernels import ops as kops
 from .faults import FaultError
+from .journal import GraftJournal, JournalError
 from .resilience import (
     CircuitBreaker,
     Deadline,
@@ -165,12 +175,36 @@ class DeviceQueryStats:
     retries: int = 0           # dispatch/refine attempts beyond the first
     host_fallbacks: int = 0    # device outage answered by the host engine
     degraded_queries: int = 0  # answers returned with an incomplete cert
+    journal_records: int = 0   # ops durably journaled before execution
+    checkpoints: int = 0       # snapshot barriers written
+    replayed_records: int = 0  # journal records replayed at recovery
+    inserts: int = 0           # streamed points ingested
+    deletes: int = 0           # ids tombstoned
+    stream_syncs: int = 0      # structural device syncs (flush/merge shipped)
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md {item})"
     )
+
+
+class StreamSyncError(RuntimeError):
+    """An ``insert``/``delete`` was journaled and applied to the host
+    stream, but shipping it to the device failed with an error that is not
+    an injected fault.  The op is committed (``recover`` replays it), so
+    the caller must not retry it.  ``ids`` are the ids it inserted or
+    tombstoned, ``result`` what the call would have returned, and
+    ``__cause__`` the device error."""
+
+    def __init__(self, op: str, ids: np.ndarray, result, cause: BaseException):
+        super().__init__(
+            f"{op} of {len(ids)} ids was journaled and applied, but its "
+            f"device sync failed ({cause!r}); do not retry it"
+        )
+        self.op = op
+        self.ids = ids
+        self.result = result
 
 
 class DeviceQueryServer:
@@ -201,38 +235,68 @@ class DeviceQueryServer:
         vacuums dead perm segments once grafting has bloated the host
         table past ``compact_slack``.
 
+    Streaming (boot via :meth:`from_streaming`): the host
+    ``StreamingIndex`` is authoritative, the card serves a
+    ``DeviceMirror`` of its tiers (rows are never removed, so every
+    flush or merge ships as one ``apply_delta``), tombstones filter on the
+    host and the not-yet-flushed delta rows are unioned in by brute force.
+
     The resilience plane treats the one device as shard 0: each dispatch
     passes the ``shard_dispatch`` fault point under ``retry`` and a
     circuit breaker; an outage past them raises, degrades to an
-    incomplete certificate (``return_certs=True``), or, on an adaptive
-    server, is answered exactly by the host engine.
+    incomplete certificate (``return_certs=True``), or, on an adaptive or
+    streaming server, is answered exactly by the host engine.
 
     Only an injected :class:`FaultError` is retried or turned into an
-    outage: any other error of a dispatch or an upload (a kernel that
-    fails to build or launch, a CUDA error) propagates to the caller.
+    outage: any other error of a dispatch, an upload, a journal append or
+    a snapshot (a kernel that fails to build or launch, a CUDA error, a
+    failing disk) propagates to the caller.
 
     ``shards > 1`` (the sharded engine) is not ported yet and raises
     ``NotImplementedError``.
     """
 
+    # overlay construction defaults — shared by the live ingest path and
+    # journal replay, which must build the identical structure
+    OVERLAY_KW = dict(delta_threshold=2048, delta_index_every=256,
+                      size_ratio=4)
+
     def __init__(self, table, points: np.ndarray, *,
                  microbatch: int = 64, compressed: bool = False,
                  shards: int | None = None, adaptive: bool = False,
-                 ambi=None, compact_slack: float = 0.5,
+                 ambi=None, stream=None, compact_slack: float = 0.5,
                  fault_plan=None, retry=None, deadline_s: float | None = None,
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
-                 clock=None, device=None):
+                 clock=None, journal_path=None, snapshot_path=None,
+                 device=None):
         if shards is not None and shards > 1:
             raise _not_ported("sharded serving (shards > 1)", "A.5")
+        self.device = resolve_device(device)
         if adaptive:
             if ambi is None:
                 raise ValueError(
                     "adaptive serving needs the host AMBI engine — boot "
                     "with DeviceQueryServer.from_ambi(ambi)"
                 )
+            if stream is not None:
+                raise ValueError(
+                    "an adaptive server grows its streaming overlay on "
+                    "insert(); do not pass stream="
+                )
             table, points = ambi.table, ambi.points
+        self.stream = stream
+        self.mirror = None
+        if stream is not None:
+            if not stream.tiers:
+                raise ValueError(
+                    "streaming serving boots from a stream with at least "
+                    "one tier — seed it with points or insert past the "
+                    "flush threshold first"
+                )
+            self.mirror = DeviceMirror(stream)
+            table = self.mirror.table
+            points = stream.points
         points = np.asarray(points)
-        self.device = resolve_device(device)
         # resilience plane: per-server policies, injectable for tests
         self.fault_plan = fault_plan
         self.retry = retry if retry is not None else RetryPolicy()
@@ -257,27 +321,82 @@ class DeviceQueryServer:
         self.table = table
         self.adaptive = adaptive
         self.ambi = ambi
-        self.points = points  # the served dataset
+        self._points = points
         self.dim = int(points.shape[1])
         # compaction epoch: bumped under the writer lock whenever compact()
         # moves rows, so a lock-split reader can detect that its captured
         # row indices went stale before it re-enters as a writer
         self._table_version = 0
+        # streaming: a tier upload exhausted its retries — queries serve
+        # host-side (exact) until the next sync re-uploads
+        self._stream_device_stale = False
+        # streaming: an upload failed with an error that is not an
+        # injected fault — it was raised to the inserter, and queries
+        # raise too (never answered from the host) until a sync lands
+        self._stream_device_error = None
         self.compact_slack = float(compact_slack)
         self.microbatch = int(microbatch)
         self.compressed = bool(compressed)
         self.stats = DeviceQueryStats()
-        # REPRO_SANITIZE: bind the shared mutable table to the writer lock
-        # that guards it.  Binding is the LAST construction step:
-        # everything above runs unpublished and single-threaded;
-        # everything after must hold the lock.
-        if ambi is not None:
-            _san.bind(ambi.table, self.table_lock)
+        # durability plane (adaptive or streaming): write-ahead journal +
+        # snapshot barriers; recovery = snapshot + replay (see recover())
+        self.journal = None
+        self.snapshot_path = None
+        if journal_path is not None or snapshot_path is not None:
+            if not adaptive and stream is None:
+                raise ValueError(
+                    "journaling/snapshots apply to adaptive or streaming "
+                    "serving — a static table needs no recovery log"
+                )
+            if journal_path is None or snapshot_path is None:
+                raise ValueError(
+                    "durability needs BOTH journal_path and snapshot_path "
+                    "(recovery replays the journal against the snapshot)"
+                )
+            self.snapshot_path = os.fspath(snapshot_path)
+            if not self.snapshot_path.endswith(".npz"):
+                self.snapshot_path += ".npz"
+            self.journal = GraftJournal(journal_path, fault_plan=fault_plan)
+            if not os.path.exists(self.snapshot_path):
+                # boot barrier: capture the pre-serving state so a crash
+                # before the first compaction is still recoverable
+                self.checkpoint()
+        # REPRO_SANITIZE: bind every shared mutable object the serving
+        # layer publishes to the writer lock that guards it.  Binding is
+        # the LAST construction step: everything above runs unpublished
+        # and single-threaded; everything after must hold the lock.
+        self._bind_sanitizer()
+
+    def _bind_sanitizer(self) -> None:
+        for obj in (self.stream,
+                    self.mirror,
+                    self.mirror.table if self.mirror is not None else None,
+                    self.ambi.table if self.ambi is not None else None):
+            if obj is not None:
+                _san.bind(obj, self.table_lock)
+
+    @property
+    def points(self) -> np.ndarray:
+        """The served dataset.  A streaming (non-adaptive) server's point
+        buffer grows in place, so this is the stream's live view; adaptive
+        servers keep the AMBI base here (the overlay carries its own)."""
+        if self.stream is not None and not self.adaptive:
+            return self.stream.points
+        return self._points
 
     @classmethod
     def from_index(cls, index, **kw) -> "DeviceQueryServer":
         """From a built ``core.fmbi.Index`` (or AMBI's ``.index``)."""
         return cls(index.table, index.points, **kw)
+
+    @classmethod
+    def from_streaming(cls, stream, **kw) -> "DeviceQueryServer":
+        """Live serving over a :class:`~repro_torch.core.streaming.StreamingIndex`:
+        the server owns a :class:`DeviceMirror` of the stream's tiers,
+        ``insert``/``delete`` route through the stream under the writer
+        lock, and structural changes (flush/merge) ship to the device as
+        deltas — never a full re-export after boot."""
+        return cls(None, None, stream=stream, **kw)
 
     @classmethod
     def from_ambi(cls, ambi, **kw) -> "DeviceQueryServer":
@@ -352,9 +471,10 @@ class DeviceQueryServer:
         return run
 
     def repair(self, shard_ids=None) -> list[int]:
-        """Re-export the device table from the host ``NodeTable`` and close
-        the breakers; with no argument, repairs when a breaker is not
-        closed.  Returns the repaired shard ids (``[0]`` or ``[]``)."""
+        """Re-export the device table from the host ``NodeTable`` (a
+        streaming server's mirror) and close the breakers; with no
+        argument, repairs when a breaker is not closed.  Returns the
+        repaired shard ids (``[0]`` or ``[]``)."""
         if shard_ids is None:
             shard_ids = [
                 s for s, br in self.breakers.items() if br.state != "closed"
@@ -369,6 +489,8 @@ class DeviceQueryServer:
                 stats=self.upload_stats, compressed=self.compressed,
                 device=self.device,
             )
+            self._stream_device_stale = False
+            self._stream_device_error = None
         for s in shard_ids:
             self._breaker(s).reset()
         return shard_ids
@@ -431,10 +553,21 @@ class DeviceQueryServer:
         for a, b in self._chunks(los.shape[0]):
             runner = self._shard_runner(deadline)
             if self.adaptive:
-                out.extend(self._window_adaptive(los[a:b], his[a:b], deadline))
+                res = self._window_adaptive(los[a:b], his[a:b], deadline)
+                if self.stream is not None:
+                    res = self._merge_overlay_window(res, los[a:b], his[a:b])
+                out.extend(res)
                 certs.extend(
                     CompletenessCertificate.intact() for _ in range(b - a)
                 )
+            elif self.stream is not None:
+                res = self._window_streaming(
+                    los[a:b], his[a:b], runner, return_certs=return_certs,
+                )
+                if return_certs:
+                    res, cs = res
+                    certs.extend(cs)
+                out.extend(res)
             else:
                 try:
                     with self.table_lock.read():
@@ -485,10 +618,24 @@ class DeviceQueryServer:
         for a, b in self._chunks(qs.shape[0]):
             runner = self._shard_runner(deadline)
             if self.adaptive:
-                out.extend(self._knn_adaptive(qs[a:b], k, deadline))
+                if self.stream is not None:
+                    k_eff = self._k_eff(k)
+                    res = self._knn_adaptive(qs[a:b], k_eff, deadline)
+                    res = self._merge_overlay_knn(res, qs[a:b], k)
+                else:
+                    res = self._knn_adaptive(qs[a:b], k, deadline)
+                out.extend(res)
                 certs.extend(
                     CompletenessCertificate.intact() for _ in range(b - a)
                 )
+            elif self.stream is not None:
+                res = self._knn_streaming(
+                    qs[a:b], k, runner, return_certs=return_certs,
+                )
+                if return_certs:
+                    res, cs = res
+                    certs.extend(cs)
+                out.extend(res)
             else:
                 try:
                     with self.table_lock.read():
@@ -665,10 +812,31 @@ class DeviceQueryServer:
     # adaptive server degrades *gracefully* under device outages: a failed
     # dispatch reroutes the affected queries down the (exact) host cold
     # path instead of returning partial answers — certificates stay intact.
+    def _journal_op(self, op: str, **args) -> None:  # analysis: caller-holds-write
+        """Write-ahead: durably journal a cold host op before executing it
+        (recovery replays exactly the journaled sequence).  An append that
+        cannot be made durable fails the op — never execute unlogged.
+        Callers hold the writer lock: journal seq must equal application
+        order, so append and apply are one atomic writer section."""
+        if self.journal is None:
+            return
+
+        def attempt():
+            return self.journal.append(op, **args)
+
+        self.retry.call(
+            attempt, retry_on=(FaultError,), on_retry=self._count_retry,
+            call_key="journal",
+        )
+        self.stats.journal_records += 1
+
     def _host_window(self, lo, hi) -> np.ndarray:  # analysis: caller-holds-write
-        """Cold-path window: host-answer (+ refine) under retry.  Faults
-        fire at entry, before any host mutation, so a retried attempt
-        re-runs the op from scratch."""
+        """Cold-path window: journal, then host-answer (+ refine) under
+        retry.  Faults fire at entry, before any host mutation, so a
+        retried attempt re-runs the op from scratch."""
+        self._journal_op(
+            "window", lo=[float(v) for v in lo], hi=[float(v) for v in hi]
+        )
 
         def attempt():
             if self.fault_plan is not None:
@@ -682,6 +850,8 @@ class DeviceQueryServer:
         return ids
 
     def _host_knn(self, q, k: int) -> np.ndarray:  # analysis: caller-holds-write
+        self._journal_op("knn", q=[float(v) for v in q], k=int(k))
+
         def attempt():
             if self.fault_plan is not None:
                 self.fault_plan.fire("host_refine", op="knn")
@@ -777,6 +947,240 @@ class DeviceQueryServer:
             cold[i] = bool(minds[i].min() <= kth)
         return cold
 
+    # -- streaming ingest ----------------------------------------------------
+    # The stream (host LSM tiers + delta) is authoritative; the device
+    # serves the mirror of its tiers, tombstones filter host-side, and the
+    # not-yet-flushed delta rows are unioned in by brute force (they are
+    # few by construction: at most delta_threshold).
+    def _ensure_stream(self):  # analysis: caller-holds-write
+        if self.stream is None:
+            if not self.adaptive:
+                raise ValueError(
+                    "ingest needs a streaming or adaptive server — boot "
+                    "with from_streaming(...) or from_ambi(...)"
+                )
+            # adaptive overlay: the AMBI rows stay where they are (ids
+            # [0, n) keep meaning buffer rows); only new points get tiered
+            self.stream = StreamingIndex(
+                self._points, store=self.ambi.store, base_external=True,
+                **self.OVERLAY_KW,
+            )
+            _san.bind(self.stream, self.table_lock)
+        return self.stream
+
+    def insert(self, pts) -> np.ndarray:
+        """Ingest points; returns their assigned ids.  Journaled (when
+        durable), applied under the writer lock, and any tier flush/merge
+        it triggers ships to the device before the lock drops.  If that
+        upload fails with an error that is not an injected fault, the
+        points are in all the same: ``StreamSyncError`` carries their ids."""
+        pts = self._validate_batch(pts, "pts")
+        if self.stream is None and not self.adaptive:
+            raise ValueError(
+                "this server is static — boot with from_streaming(...) "
+                "or from_ambi(...) to ingest"
+            )
+        with self.table_lock.write():
+            stream = self._ensure_stream()
+            # journal inside the writer section: journal seq must match
+            # application order or replay assigns different ids than the
+            # live run acknowledged to clients
+            self._journal_op(
+                "insert", pts=[[float(v) for v in p] for p in pts]
+            )
+            ids = stream.insert(pts)
+            self.stats.inserts += len(pts)
+            self._sync_committed("insert", ids, ids)
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone ids; returns how many were newly deleted.  The points
+        stay physically present until a merge rewrites their tier — queries
+        filter them immediately.  A failed upload raises
+        ``StreamSyncError`` as ``insert`` does: the ids are deleted."""
+        ids = np.unique(np.asarray(ids, dtype=np.int64).ravel())
+        if self.stream is None and not self.adaptive:
+            raise ValueError(
+                "this server is static — boot with from_streaming(...) "
+                "or from_ambi(...) to ingest"
+            )
+        with self.table_lock.write():
+            stream = self._ensure_stream()
+            # validate before journaling (and journal under the lock, in
+            # application order): a durable record that deterministically
+            # raises would make every subsequent recover() fail
+            if len(ids) and (ids[0] < 0 or ids[-1] >= stream.n_ids):
+                raise IndexError("delete id out of range")
+            self._journal_op("delete", ids=[int(i) for i in ids])
+            n = stream.delete(ids)
+            self.stats.deletes += n
+            self._sync_committed("delete", ids, n)
+        return n
+
+    def _sync_committed(self, op, ids, result):  # analysis: caller-holds-write
+        """``_sync_stream_device`` after a committed op: its error says
+        that the op is in, so that the caller does not apply it twice."""
+        try:
+            self._sync_stream_device()
+        except Exception as e:
+            raise StreamSyncError(op, ids, result, e) from e
+
+    def _sync_stream_device(self) -> None:  # analysis: caller-holds-write
+        """Ship the stream's structural events (tier attach/merge) to the
+        device.  Caller holds the writer lock.  One ``apply_delta`` of the
+        mirror (only new leaf blocks upload) against the stream's live
+        point buffer, which moves as it grows.  The adaptive overlay has
+        no mirror — its tiers serve host-side.
+
+        An upload that exhausts its retries (injected faults) leaves the
+        device stale and the host authoritative until a later sync lands
+        it.  Any other error is raised unretried; the export then missed
+        this sync, so streaming queries raise it too until one lands."""
+        if self.mirror is None:
+            return
+        info = self.mirror.sync()
+        if info is None and not self._stream_device_stale:
+            return
+        self.stats.stream_syncs += 1
+
+        def upload():
+            if self.fault_plan is not None:
+                self.fault_plan.fire("apply_delta")
+            self.dev = self.dev.apply_delta(
+                self.mirror.table, self.stream.points
+            )
+            self._stream_device_stale = False
+            self._stream_device_error = None
+            self.stats.delta_refreshes += 1
+
+        try:
+            self.retry.call(
+                upload, retry_on=(FaultError,), on_retry=self._count_retry,
+                call_key="apply_delta",
+            )
+        except RetryExhausted:
+            # device stale, host authoritative: streaming queries serve
+            # host-side until a later sync lands the upload (re-entered
+            # on the next sync even if it carries no new events)
+            self._stream_device_stale = True
+        except Exception as e:
+            self._stream_device_stale = True
+            self._stream_device_error = e
+            raise
+
+    def _k_eff(self, k: int) -> int:
+        """k-NN over-fetch for tombstones: each component's top-(k+shadow)
+        must contain its k best live rows.  Bucketed to the next power of
+        two so a drifting shadow count reuses compiled k-variants."""
+        shadow = self.stream.shadow if self.stream is not None else 0
+        if shadow == 0:
+            return k
+        return max(k, 1 << (k + shadow - 1).bit_length())
+
+    def _stream_is_stale(self) -> bool:
+        """Device copy known to be missing just-flushed tier rows (a failed
+        upload): the host stream answers exactly until the next sync
+        converges the device.  An upload that failed with an error that
+        is not an injected fault is raised instead."""
+        if self._stream_device_error is not None:
+            raise RuntimeError(
+                "the device export missed a stream sync; the next insert "
+                "or delete, or repair([0]), uploads it again"
+            ) from self._stream_device_error
+        return self._stream_device_stale
+
+    def _window_streaming(self, los, his, runner, *,
+                          return_certs: bool = False):
+        """Streaming window: device answer + tombstone filter + delta
+        union.  A stale device or a device outage falls back to the
+        authoritative host stream (exact, intact certificates)."""
+        with self.table_lock.read():
+            stream = self.stream
+            certs = [CompletenessCertificate.intact() for _ in los]
+            if self._stream_is_stale():
+                out = stream.window(los, his)
+                return (out, certs) if return_certs else out
+            try:
+                res = runner(0, lambda: window_query_batch_torch(
+                    self.dev, los, his,
+                ))
+            except ShardUnavailable:
+                out = stream.window(los, his)
+                return (out, certs) if return_certs else out
+            pend = stream.delta_live_rows()
+            if len(pend):
+                p = stream.points[pend]
+                inside = ((p[None, :, :] >= los[:, None, :])
+                          & (p[None, :, :] <= his[:, None, :])).all(axis=2)
+            out = []
+            for i, ids in enumerate(res):
+                ids = stream.filter_live(np.asarray(ids, dtype=np.int64))
+                if len(pend):
+                    ids = np.concatenate([ids, pend[inside[i]]])
+                out.append(np.sort(ids))
+        return (out, certs) if return_certs else out
+
+    def _knn_streaming(self, qs, k: int, runner, *,
+                       return_certs: bool = False):
+        """Streaming k-NN: the device's top-``k_eff`` (over-fetched past
+        the tombstones), filtered, unioned with the delta rows and
+        re-ranked by f64 distance (ties by id)."""
+        with self.table_lock.read():
+            stream = self.stream
+            certs = [CompletenessCertificate.intact() for _ in qs]
+            if self._stream_is_stale():
+                out = stream.knn(qs, k)
+                return (out, certs) if return_certs else out
+            k_eff = min(self._k_eff(k), int(self.dev.live_points()))
+            res = [np.empty(0, dtype=np.int64)] * len(qs)
+            if k_eff > 0:
+                try:
+                    res = runner(0, lambda: knn_query_batch_torch(
+                        self.dev, qs, k_eff,
+                    ))
+                except ShardUnavailable:
+                    out = stream.knn(qs, k)
+                    return (out, certs) if return_certs else out
+            pend = stream.delta_live_rows()
+            pts = stream.points
+            out = []
+            for i in range(len(qs)):
+                ids = stream.filter_live(np.asarray(res[i], dtype=np.int64))
+                if len(pend):
+                    ids = np.concatenate([ids, pend])
+                ids = np.unique(ids)
+                d2 = np.sum((pts[ids] - qs[i]) ** 2, axis=1)
+                out.append(ids[np.lexsort((ids, d2))[:k]])
+        return (out, certs) if return_certs else out
+
+    def _merge_overlay_window(self, res, los, his) -> list[np.ndarray]:
+        """Union an adaptive microbatch's base answers with the streaming
+        overlay's, filtering base rows tombstoned by delete()."""
+        with self.table_lock.read():
+            s = self.stream
+            over = s.window(los, his)
+            out = []
+            for base_ids, ov in zip(res, over):
+                ids = s.filter_live(np.asarray(base_ids, dtype=np.int64))
+                out.append(np.sort(np.concatenate([ids, ov])))
+        return out
+
+    def _merge_overlay_knn(self, res, qs, k: int) -> list[np.ndarray]:
+        """Two-level top-k: the base path served top-k_eff physical rows
+        (enough to survive tombstone filtering), the overlay serves its
+        own top-k live; rank the union by exact f64 distance."""
+        with self.table_lock.read():
+            s = self.stream
+            over = s.knn(qs, k)
+            pts = s.points
+            out = []
+            for i, (base_ids, ov) in enumerate(zip(res, over)):
+                ids = s.filter_live(np.asarray(base_ids, dtype=np.int64))
+                ids = np.unique(np.concatenate([ids, ov]))
+                d2 = np.sum((pts[ids] - qs[i]) ** 2, axis=1)
+                out.append(ids[np.lexsort((ids, d2))[:k]])
+        return out
+
     def _after_refinement(self, before_unref: np.ndarray) -> None:  # analysis: caller-holds-write
         """Push the microbatch's grafts to the device with one incremental
         delta, then vacuum the host table if grafting bloated it.
@@ -811,7 +1215,10 @@ class DeviceQueryServer:
 
     def _maybe_compact(self) -> None:  # analysis: caller-holds-write
         """Vacuum the host table once grafting bloated it, rebasing the
-        device table's row maps through the returned remap."""
+        device table's row maps through the returned remap.  With a
+        journal, the vacuum is itself a journaled op (replay must compact
+        at the same point to stay bit-identical) and doubles as the
+        snapshot barrier: checkpoint, then truncate the folded journal."""
         t = self.ambi.table
         if t.n_perm > (1.0 + self.compact_slack) * len(self.points):
             # the compact() row remap and the device rebase must be one
@@ -822,7 +1229,218 @@ class DeviceQueryServer:
             assert self.table_lock.held_write(), (
                 "_maybe_compact requires the TableLock writer section"
             )
+            if self.journal is not None:
+                try:
+                    self._journal_op("compact")
+                except RetryExhausted:
+                    return  # not durably logged -> defer the vacuum
             remap = t.compact()
             self.dev.remap_rows(remap)
             self._table_version += 1
             self.stats.compactions += 1
+            if self.snapshot_path is not None:
+                try:
+                    self._checkpoint_locked()
+                except RetryExhausted:
+                    pass  # barrier deferred; journal still holds the ops
+
+    # -- durability: snapshot barriers + crash recovery ----------------------
+    def checkpoint(self) -> None:
+        """Durable snapshot barrier: atomically persist the table, the
+        dataset, and the adaptive state (rng + page store), or a streaming
+        server's stream, recording the journal's high-water ``seq``; then
+        truncate the journal (its records are folded into the snapshot).
+        Crash-ordering: the snapshot lands via atomic rename *before* the
+        truncate, and recovery skips records at or below the recorded seq
+        — a kill between the two replays nothing twice.
+
+        Takes the writer lock: the snapshot must capture a quiesced
+        state, and the captured seq, the saved bytes, and the truncate
+        must not interleave with a concurrent writer (a journal record
+        folded into no snapshot but truncated anyway would be lost).
+        ``_maybe_compact`` calls :meth:`_checkpoint_locked` directly —
+        it already holds the writer section (TableLock is not
+        reentrant)."""
+        if self.snapshot_path is None:
+            raise ValueError("no snapshot_path configured")
+        with self.table_lock.write():
+            self._checkpoint_locked()
+
+    def _checkpoint_locked(self) -> None:  # analysis: caller-holds-write
+        if self.snapshot_path is None:
+            raise ValueError("no snapshot_path configured")
+
+        def attempt():
+            if self.fault_plan is not None:
+                self.fault_plan.fire("snapshot_save", path=self.snapshot_path)
+            seq = self.journal.seq if self.journal else 0
+            if self.stream is not None and not self.adaptive:
+                # streaming barrier: the stream IS the authoritative state
+                # (points, tombstones, tiers, store); the mirror is derived
+                # and rebuilt at boot
+                self.stream.save(self.snapshot_path,
+                                 extra={"journal_seq": seq})
+                return
+            self.ambi.table.save(
+                self.snapshot_path, points=self._points,
+                extra={
+                    "ambi_state": self.ambi.state_meta(),
+                    "journal_seq": seq,
+                },
+            )
+            if self.stream is not None:
+                # adaptive overlay rides along as a sidecar in the same
+                # barrier.  The two saves are not atomic as a pair: a
+                # crash in between leaves the old sidecar next to the new
+                # base, so recovery replays ingest from the sidecar's OWN
+                # recorded seq, not the base's (see recover())
+                self.stream.save(self._overlay_sidecar(),
+                                 extra={"journal_seq": seq})
+
+        self.retry.call(
+            attempt, retry_on=(FaultError,), on_retry=self._count_retry,
+            call_key="snapshot",
+        )
+        if self.journal is not None:
+            self.journal.truncate()
+        self.stats.checkpoints += 1
+
+    def _overlay_sidecar(self) -> str:
+        return self.snapshot_path[:-len(".npz")] + ".stream.npz"
+
+    @staticmethod
+    def _replay_op(ambi, rec: dict) -> None:  # analysis: single-threaded(boot-time replay precedes serving)
+        op = rec.get("op")
+        if op == "window":
+            ambi.window(
+                np.asarray(rec["lo"], dtype=np.float64),
+                np.asarray(rec["hi"], dtype=np.float64),
+            )
+        elif op == "knn":
+            ambi.knn(np.asarray(rec["q"], dtype=np.float64), int(rec["k"]))
+        elif op == "compact":
+            ambi.table.compact()
+        else:
+            raise JournalError(f"unknown journal op {op!r} (seq {rec.get('seq')})")
+
+    @classmethod
+    def recover(cls, snapshot_path, journal_path, *,  # analysis: single-threaded(recovery runs before the server takes traffic)
+                fault_plan=None, **kw) -> "DeviceQueryServer":
+        """Reboot a killed adaptive or streaming server: load the snapshot,
+        replay the journal's post-barrier records against the restored
+        state (grafting is deterministic given the snapshot's rng +
+        page-store state, so the table lands bit-identical to the
+        uninterrupted server's), then resume serving with the same
+        durability config.  ``device`` and the other keywords go to the
+        new server.  Snapshots and journals of the JAX package's server
+        recover here too (same formats).
+
+        The fault plane is disarmed for the replay — recovery re-executes
+        already-acknowledged ops and must not be re-faulted — and rearmed
+        before the recovered server takes traffic."""
+        snapshot_path = os.fspath(snapshot_path)
+        if not snapshot_path.endswith(".npz"):
+            snapshot_path += ".npz"
+        if fault_plan is not None:
+            fault_plan.fire("snapshot_load", path=snapshot_path)
+        if StreamingIndex.is_stream_snapshot(snapshot_path):
+            # streaming server: restore the stream, replay post-barrier
+            # ingest on the host, then boot (the mirror and device exports
+            # are derived state, rebuilt fresh from the restored tiers)
+            stream, meta = StreamingIndex.load(snapshot_path)
+            snap_seq = int(meta["journal_seq"])
+            was_armed = fault_plan is not None and fault_plan.armed
+            if was_armed:
+                fault_plan.disarm()
+            replayed = 0
+            try:
+                for rec in GraftJournal.read_records(
+                    journal_path, after_seq=snap_seq
+                ):
+                    cls._replay_ingest(stream, rec)
+                    replayed += 1
+            finally:
+                if was_armed:
+                    fault_plan.rearm()
+            srv = cls.from_streaming(
+                stream, snapshot_path=snapshot_path,
+                journal_path=journal_path, fault_plan=fault_plan, **kw,
+            )
+            srv.journal.seq = max(srv.journal.seq, snap_seq)
+            srv.stats.replayed_records = replayed
+            return srv
+        table, meta, points = NodeTable.load(snapshot_path)
+        if points is None or "ambi_state" not in meta:
+            raise ValueError(
+                "recovery snapshot must carry points and adaptive state "
+                "(written by DeviceQueryServer.checkpoint)"
+            )
+        ambi = AMBI.from_table_state(
+            np.asarray(points), table, str(meta["ambi_state"])
+        )
+        snap_seq = int(meta["journal_seq"])
+        # the base snapshot and the overlay sidecar are two files written
+        # in sequence — a crash between them leaves the sidecar at the
+        # *previous* barrier's seq.  Each file keeps its own replay
+        # cursor: ambi ops resume after the base's seq, ingest ops after
+        # the sidecar's own recorded seq (0 when no sidecar exists — no
+        # ingest was ever folded, so every journaled ingest op replays).
+        overlay = None
+        overlay_seq = 0
+        sidecar = snapshot_path[:-len(".npz")] + ".stream.npz"
+        if os.path.exists(sidecar):
+            overlay, ometa = StreamingIndex.load(sidecar)
+            overlay_seq = int(ometa["journal_seq"])
+            if overlay_seq == snap_seq:
+                # one barrier saved both files from the one page store the
+                # live overlay shares with AMBI: share it again, so replay
+                # allocates pages and charges I/O as the live server did
+                # (the reference keeps the sidecar's copy: ROADMAP C.5)
+                overlay.store = ambi.store
+        was_armed = fault_plan is not None and fault_plan.armed
+        if was_armed:
+            fault_plan.disarm()
+        replayed = 0
+        try:
+            for rec in GraftJournal.read_records(
+                journal_path, after_seq=min(snap_seq, overlay_seq)
+            ):
+                if rec.get("op") in ("insert", "delete"):
+                    if int(rec.get("seq", 0)) <= overlay_seq:
+                        continue  # already folded into the sidecar
+                    if overlay is None:
+                        overlay = StreamingIndex(
+                            np.asarray(points), store=ambi.store,
+                            base_external=True, **cls.OVERLAY_KW,
+                        )
+                    cls._replay_ingest(overlay, rec)
+                else:
+                    if int(rec.get("seq", 0)) <= snap_seq:
+                        continue  # already folded into the base snapshot
+                    cls._replay_op(ambi, rec)
+                replayed += 1
+        finally:
+            if was_armed:
+                fault_plan.rearm()
+        srv = cls.from_ambi(
+            ambi, snapshot_path=snapshot_path, journal_path=journal_path,
+            fault_plan=fault_plan, **kw,
+        )
+        srv.stream = overlay
+        if overlay is not None:
+            _san.bind(overlay, srv.table_lock)
+        srv.journal.seq = max(srv.journal.seq, snap_seq)
+        srv.stats.replayed_records = replayed
+        return srv
+
+    @staticmethod
+    def _replay_ingest(stream, rec: dict) -> None:  # analysis: single-threaded(boot-time replay precedes serving)
+        op = rec.get("op")
+        if op == "insert":
+            stream.insert(np.asarray(rec["pts"], dtype=np.float64))
+        elif op == "delete":
+            stream.delete(np.asarray(rec["ids"], dtype=np.int64))
+        else:
+            raise JournalError(
+                f"unknown journal op {op!r} (seq {rec.get('seq')})"
+            )

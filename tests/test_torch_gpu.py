@@ -9,7 +9,9 @@ Without a card every test skips (the decision is taken inside the fixture,
 not at import).  Each kernel is held bit for bit against its plain version
 on the same CUDA tensors, the engine's answers on a ``cuda`` export against
 the same export on the CPU (where every kernel runs as its plain version),
-and a ``RetrievalServer`` on the card against the same server on the CPU.
+a ``RetrievalServer`` on the card against the same server on the CPU,
+and a streaming ``DeviceQueryServer`` (with recovery and the frontend) on
+the card against the same server on the CPU and a brute force.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro_torch.core import (
     AMBI,
     DeviceTable,
     PageStore,
+    StreamingIndex,
     bulk_load,
     compress_boxes_bf16,
     knn_query_batch_torch,
@@ -170,6 +173,118 @@ def test_adaptive_server_on_the_card_matches_the_cpu_server(cuda, compressed):
         np.testing.assert_array_equal(getattr(card.ambi.table, c),
                                       getattr(cpu.ambi.table, c))
     np.testing.assert_array_equal(card.dev.leaf_ids.cpu().numpy(), card.dev.host_ids)
+
+
+def _live_brute(stream, lo, hi):
+    live = stream.live_ids()
+    p = stream.points[live]
+    return live[((p >= lo) & (p <= hi)).all(axis=1)]
+
+
+def _live_knn(stream, q, k):
+    live = stream.live_ids()
+    d2 = np.sum((stream.points[live] - q) ** 2, axis=1)
+    return live[np.lexsort((live, d2))[:k]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compressed", [False, True])
+def test_streaming_server_on_the_card_matches_the_cpu_server(cuda, compressed):
+    """A streaming ``DeviceQueryServer`` on the card against the same
+    server on the CPU and a brute force over the live rows, through
+    flushes, fusions and rebuild-merges, with 300 tombstones in the base
+    tier (k-NN over-fetches k_eff = 512 > S = 341): equal answers,
+    counters and mirror tables; one full export, one delta per sync; the
+    four main-path kernels launched; no retry or host fallback."""
+    rng = np.random.default_rng(5)
+    pts = rng.random((20_000, 2)).astype(np.float32).astype(np.float64)
+    # the base tier (level 2) never merges with the inserted ones (level
+    # <= 1), so its 300 tombstones stay in the shadow
+    kw = dict(delta_threshold=1024, delta_index_every=256, size_ratio=4)
+    servers = [DeviceQueryServer.from_streaming(StreamingIndex(pts, **kw), microbatch=64,
+                                                compressed=compressed, device=dev)
+               for dev in (None, "cpu")]
+    card, cpu = servers
+    assert card.dev.device.type == "cuda"
+    launches.reset()
+    base_dels = rng.choice(20_000, size=300, replace=False)
+    for step in range(12):
+        ins = rng.random((1024, 2)).astype(np.float32).astype(np.float64)
+        ids = [srv.insert(ins) for srv in servers]
+        np.testing.assert_array_equal(ids[0], ids[1])
+        if step % 4 == 3:
+            dels = np.concatenate([base_dels[step // 4 * 100:(step // 4 + 1) * 100],
+                                   rng.choice(ids[0], 16, replace=False)])
+            assert card.delete(dels) == cpu.delete(dels)
+        assert not card._stream_is_stale()
+        c = rng.random((64, 2)).astype(np.float32).astype(np.float64)
+        los, his = c - 0.01, c + 0.01
+        got, want = (srv.window(los, his) for srv in servers)
+        for i, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, _live_brute(card.stream, los[i], his[i]))
+        got, want = (srv.knn(c, 16) for srv in servers)
+        for i, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, _live_knn(card.stream, c[i], 16))
+    assert card._k_eff(16) == 512 > card.dev.leaf_size
+    s = card.stream
+    assert s.flushes >= 4 and s.fusions >= 1 and s.merges >= 1
+    counts = launches.counts()
+    engine = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
+    assert all(counts[k] > 0 for k in engine), counts
+    assert card.stats == cpu.stats
+    assert card.upload_stats == cpu.upload_stats
+    assert card.upload_stats["full_exports"] == 1
+    assert card.stats.delta_refreshes == card.stats.stream_syncs > 0
+    assert (card.stats.retries, card.stats.host_fallbacks, card.stats.degraded_queries) == (0, 0, 0)
+    for c in ("mbb_lo", "mbb_hi", "perm", "leaf_count", "first_child", "child_count"):
+        np.testing.assert_array_equal(getattr(card.mirror.table, c),
+                                      getattr(cpu.mirror.table, c))
+    np.testing.assert_array_equal(card.dev.leaf_ids.cpu().numpy(), card.dev.host_ids)
+
+
+@pytest.mark.gpu
+def test_streaming_recovery_and_frontend_on_the_card(cuda, tmp_path):
+    """A journaled streaming server on the card, killed after a barrier
+    and more ingest, recovers on the card with the same answers; a
+    ``Frontend`` over it serves a burst as the server does directly."""
+    from repro_torch.serve import Frontend, VirtualClock
+
+    rng = np.random.default_rng(6)
+    pts = rng.random((10_000, 2)).astype(np.float32).astype(np.float64)
+    kw = dict(delta_threshold=1024, delta_index_every=256, size_ratio=4)
+    live = DeviceQueryServer.from_streaming(
+        StreamingIndex(pts, **kw), microbatch=64, journal_path=tmp_path / "ops.journal",
+        snapshot_path=tmp_path / "snap.npz")
+    for step in range(6):
+        live.insert(rng.random((700, 2)).astype(np.float32).astype(np.float64))
+        live.delete(rng.integers(0, live.stream.n_ids, 40))
+        if step == 2:
+            live.checkpoint()
+    rec = DeviceQueryServer.recover(tmp_path / "snap.npz", tmp_path / "ops.journal",
+                                    microbatch=64)
+    assert rec.dev.device.type == "cuda" and rec.stats.replayed_records == 6
+    c = rng.random((64, 2)).astype(np.float32).astype(np.float64)
+    for a, b in zip(rec.window(c - 0.02, c + 0.02), live.window(c - 0.02, c + 0.02)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(rec.knn(c, 16), live.knn(c, 16)):
+        np.testing.assert_array_equal(a, b)
+    fe = Frontend(rec, clock=VirtualClock(), queue_bound=64, batch_max=32,
+                  batch_window_s=0.001)
+    reqs = [fe.submit_window(lo, lo + 0.04) for lo in c[:48]] + [
+        fe.submit_knn(q, 16) for q in c[:48]]
+    fe.drain()
+    assert fe.stats.rejected == 32 and fe.stats.errors == 0
+    for r in reqs:
+        if r.status != "ok":
+            assert r.status == "rejected" and not r.cert.complete
+        elif r.kind == "window":
+            lo, hi = r.payload
+            np.testing.assert_array_equal(r.ids, live.window(lo[None], hi[None])[0])
+        else:
+            np.testing.assert_array_equal(r.ids, live.knn(r.payload[0][None], 16)[0])
+    assert (rec.stats.retries, rec.stats.host_fallbacks) == (0, 0)
 
 
 @pytest.mark.gpu

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import AMBI, DeviceTable, PageStore, bulk_load
+from repro_torch.core import AMBI, DeviceTable, PageStore, StreamingIndex, bulk_load
 from repro_torch.core import grid_index as GI
 from repro_torch.core import queries_torch as QT
 from repro_torch.kernels import knn_topk, launches, ops, partition_assign, window_filter
@@ -65,7 +65,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.grid_index, repro_torch.serve.engine, "
         "repro_torch.core.ambi, repro_torch.core.queries, "
         "repro_torch.core.distributed_torch, repro_torch.serve.resilience, "
-        "repro_torch.serve.faults, repro_torch.analysis.runtime\n"
+        "repro_torch.serve.faults, repro_torch.analysis.runtime, "
+        "repro_torch.core.streaming, repro_torch.serve.journal, "
+        "repro_torch.serve.frontend\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -95,10 +97,14 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
         DeviceQueryServer.from_index(idx)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceQueryServer.from_ambi(AMBI(idx.points, 60))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.from_streaming(StreamingIndex(idx.points))
     dev = idx.table.to_device(idx.points, device="cpu")
     assert dev.device.type == "cpu"
     assert QT.resolve_device("cpu") == torch.device("cpu")
     assert DeviceQueryServer.from_index(idx, device="cpu").dev.device.type == "cpu"
+    srv = DeviceQueryServer.from_streaming(StreamingIndex(idx.points), device="cpu")
+    assert srv.dev.device.type == "cpu"
 
 
 def test_grid_index_and_server_need_cuda_or_cpu(monkeypatch, tmp_path):
@@ -197,6 +203,21 @@ def test_cpu_path_launches_no_kernel():
     adaptive.knn(c, 4)
     assert adaptive.stats.hot_queries > 0
     assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
+
+
+def test_recover_forwards_the_device(monkeypatch, tmp_path):
+    """``recover`` boots the recovered server where the caller asks, and
+    on the card by default (raising without one)."""
+    idx = _index()
+    live = DeviceQueryServer.from_streaming(
+        StreamingIndex(idx.points), journal_path=tmp_path / "j",
+        snapshot_path=tmp_path / "s.npz", device="cpu")
+    live.insert(idx.points[:5])
+    rec = DeviceQueryServer.recover(tmp_path / "s.npz", tmp_path / "j", device="cpu")
+    assert rec.dev.device.type == "cpu" and rec.stats.replayed_records == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.recover(tmp_path / "s.npz", tmp_path / "j")
 
 
 @pytest.mark.parametrize("alone", [False, True])
