@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main, serving, streaming, first-generation and
-retrieval paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's main, serving, streaming, sharded,
+first-generation and retrieval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -22,7 +22,7 @@ Phases (any failure exits non-zero; nothing is caught):
    k distinct dataset rows at +inf on both exports and both engines.
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-   Phases 3a, 3u, 3c, 5 and 6 at d = 2 run right after phase 3, and 4u,
+   Phases 3a, 3s, 3h, 3u, 3c and 5 at d = 2 run right after phase 3, and 4u,
    4c, the d = 5 retrieval phase right after phase 4, on their exports,
    points and batches.
 3a. Serving (``DeviceQueryServer``, microbatches of 64).  Static: the
@@ -73,6 +73,37 @@ Phases (any failure exits non-zero; nothing is caught):
    stream of 4 + 4 batches is killed and recovered: equal tables in every
    column and equal answers.  Its timings: bulk load, points per second,
    every ``apply_delta``, warm batches, checkpoints and recovery.
+3h. Sharded serving, right after 3s, on phase 3's index and batches.
+   Static: ``ShardedDeviceTable.from_index`` at m = 4 and m = 8 (timed
+   to ``torch.cuda.synchronize()``), the 1024 windows and 1024 k-NN
+   queries through ``window_query_batch_sharded`` /
+   ``knn_query_batch_sharded`` in one batch (three runs), then a
+   ``shards=4`` server in microbatches of 64: every window equals the
+   fused single-table batch's id set, every k-NN distance sequence the
+   fused batch's; shards probed per window, round-1 home shards and
+   round-2 (query, shard) pairs are logged.  Outage: a ``FaultPlan``
+   kills shard 1's ``shard_dispatch`` (two attempts, breaker threshold
+   1): a window's certificate is incomplete exactly where it reaches
+   shard 1's router box, naming shard 1 alone, with the other shards'
+   share of the fused answer; a k-NN answer holds no id of shard 1, is
+   ``certified_exact`` exactly where shard 1's router mindist exceeds
+   its k-th distance (then equal to the fused answer), and the first 16
+   equal a brute force over the other shards' points; ``repair([1])``
+   re-exports one shard and every answer equals the fused batch's again.
+   Adaptive: an ``AMBI`` over the points rounded to f32 (phase 3a's
+   buffer) behind ``from_ambi(..., shards=4)``, phase 3a's 16 + 16
+   hotspot batches: the boot plans one shard, the server re-plans to
+   four, and ``full_exports`` = 1 + 4 + the later per-changed-shard
+   refreshes (each timed); windows of batches 0, 4, 8, 12, 15 and 16 k-NN
+   queries of each equal the brute force.  Streaming: a
+   ``StreamingIndex`` of the same points behind ``from_streaming(...,
+   shards=4)`` (no journal) fed phase 3s's traffic: no full re-shard,
+   per-shard refreshes (each timed) fewer than 4 per sync, the export
+   never stale, no deleted id, the first 16 windows and k-NN queries of
+   each round equal a brute force over the live rows.  Each part zeroes
+   the counts before and reads them after (the four main-path kernels
+   must have launched) and asserts no retry, host fallback or degraded
+   answer where no fault plan is armed.
 3u. First-generation engine (``fused=False``) on phase 3's two exports,
    the same windows and k-NN queries, three runs each, counts zeroed
    before and read after: ``box_hits``, ``window_mask_gathered``,
@@ -117,13 +148,17 @@ Phases (any failure exits non-zero; nothing is caught):
    same comparison runs at d = 5, where the six redesigned kernels
    (``TIMED_D5``) are timed too.  Phase 3s's calls (``<dtype>:stream``,
    its last k-NN round at ``k_eff`` = 512 among them) are held the same
-   way, untimed.  Each phase also counts its launches by
+   way, untimed, and so are phase 3h's (``<dtype>:sharded``: the
+   shards' ragged query counts, the one-row root level of a partial
+   shard, the refreshed shards).  Each phase also counts its launches by
    shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
 k-NN batch (phase 3a's first batch, replayed), of phase 3s's window and
-k-NN batch on the multi-tier state, of the fused window batch's
+k-NN batch on the multi-tier state, of one warm 64-query window and k-NN
+microbatch of phase 3h's ``shards=4`` server and one insert of 2048
+points with its sharded sync, of the fused window batch's
 frontier alone (``box_hits`` and the mask operations around it), and of
 the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
@@ -1184,6 +1219,445 @@ def streaming_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches,
 
 
 # --------------------------------------------------------------------------
+# phase 3h: sharded serving (router, two-round k-NN, static/adaptive/streaming)
+# --------------------------------------------------------------------------
+class ShardProbes:
+    """Counts the per-shard dispatches of the sharded protocols while it
+    is entered: ``(shard, queries)`` of each window and k-NN call."""
+
+    def __init__(self, dt, sdev_of):
+        self.dt = dt
+        self.sdev_of = sdev_of   # () -> the ShardedDeviceTable being served
+        self.calls = {"window": [], "knn": []}
+
+    def __enter__(self):
+        self._orig = (self.dt.window_query_batch_torch, self.dt.knn_query_batch_torch)
+        for kind, orig in zip(("window", "knn"), self._orig):
+            setattr(self.dt, f"{kind}_query_batch_torch", self._wrap(kind, orig))
+        return self
+
+    def __exit__(self, *exc):
+        self.dt.window_query_batch_torch, self.dt.knn_query_batch_torch = self._orig
+
+    def _wrap(self, kind, orig):
+        def call(dev, qs, *a, **kw):
+            s = next(i for i, x in enumerate(self.sdev_of().shards) if x is dev)
+            self.calls[kind].append((s, len(np.atleast_2d(qs))))
+            return orig(dev, qs, *a, **kw)
+        return call
+
+
+def timed_method(cls, name, torch, sink):
+    """Wrap the method (or classmethod) ``cls.name`` so that each call's
+    wall time, ending in ``torch.cuda.synchronize()``, is appended to
+    ``sink`` as ``(name, seconds)``; returns the original attribute, to
+    be set back."""
+    raw = cls.__dict__[name]
+    fn = raw.__func__ if isinstance(raw, classmethod) else raw
+
+    def call(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((name, time.perf_counter() - t))
+        return out
+
+    setattr(cls, name, classmethod(call) if isinstance(raw, classmethod) else call)
+    return raw
+
+
+def main_path_launched(tag, counts) -> None:
+    missing = [kk for kk in MAIN_PATH if counts[kk] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] kernels not launched: {missing}")
+
+
+def same_as_fused(tag, pts32, qs, inputs, wres, kres, what) -> None:
+    """Every window equals the fused single-table batch's id set and every
+    k-NN answer's f32 distance sequence the fused batch's."""
+    want_w = inputs["batches"][("window", "f32")]
+    want_k = inputs["batches"][("knn", "f32")][1]
+    bad_w = [i for i, (a, b) in enumerate(zip(wres, want_w))
+             if not np.array_equal(np.sort(a), np.sort(b))]
+    bad_k = [i for i, (ids, w) in enumerate(zip(kres, want_k))
+             if not np.array_equal(brute_d2(pts32[ids], qs[i].astype(np.float32)), w)]
+    if len(wres) != len(want_w) or len(kres) != len(want_k) or bad_w or bad_k:
+        raise AssertionError(f"[{tag}] {what}: windows {bad_w[:5]} and k-NN {bad_k[:5]} "
+                             f"differ from the fused batch ({len(wres)}, {len(kres)})")
+
+
+SHARDS_STATIC = (4, 8)
+SHARDS_SERVED = 4
+
+
+def sharded_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches, device="cuda",
+                 smi="", profile=False, small_n=None):
+    """Phase 3h: the sharded engine on phase 3's index and batches.
+
+    Static: ``ShardedDeviceTable.from_index`` at m = 4 and 8, the 1024
+    windows and k-NN queries through the protocols in one batch (three
+    runs), and a ``shards=4`` server in microbatches of 64, every answer
+    equal to the fused single-table batch's.  Outage: shard 1 dead, its
+    certificates and ``repair([1])``.  Adaptive: AMBI over the points
+    rounded to f32 behind ``from_ambi(..., shards=4)``, phase 3a's hotspot
+    stream (the re-plan from one shard to four).  Streaming: a
+    ``StreamingIndex`` behind ``from_streaming(..., shards=4)`` fed phase
+    3s's traffic.  ``small_n`` cuts the adaptive and streaming parts to
+    ``osm_like(small_n)``.  Returns the measurements and the kernel calls,
+    recorded under ``<dtype>:sharded`` (first, smallest and last)."""
+    from repro_torch.core import distributed_torch as DT
+    from repro_torch.core.datasets import osm_like
+    from repro_torch.core.geometry import boxes_intersect_windows, boxes_mindist_sq
+    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FaultPlan, FaultRule, RetryPolicy
+
+    out = {"k": k, "nvidia_smi": smi}
+    index, los, his, qs = inputs["index"], inputs["los"], inputs["his"], inputs["qs"]
+    pts32 = pts.astype(np.float32)
+    n = len(pts)
+    Sharded = rt.ShardedDeviceTable
+    recorder = Recorder(ops, MAIN_PATH, suffix=":sharded", last=True)
+    refresh_s: list = []
+    restore = [(Sharded, "refresh", timed_method(Sharded, "refresh", torch, refresh_s)),
+               (Sharded, "from_table", timed_method(Sharded, "from_table", torch,
+                                                    refresh_s))]
+    current = {}
+    probes = ShardProbes(DT, lambda: current["sdev"])
+    try:
+        with recorder:
+            # -- static: the protocols in one batch, m = 4 and 8
+            for m in SHARDS_STATIC:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sdev = Sharded.from_index(index, m, device=device)
+                torch.cuda.synchronize()
+                rec = {"export_s": time.perf_counter() - t0, "m": sdev.m,
+                       "points_per_shard": [s.n_points for s in sdev.shards],
+                       "leaves_per_shard": [s.n_leaves for s in sdev.shards]}
+                current["sdev"] = sdev
+                launches.reset()
+                for kind in probes.calls:
+                    probes.calls[kind].clear()
+                with probes:
+                    wres, rec["window"] = timed_runs(
+                        lambda: rt.window_query_batch_sharded(sdev, los, his, fused=True),
+                        torch, launches, runs=3)
+                    kres, rec["knn"] = timed_runs(
+                        lambda: rt.knn_query_batch_sharded(sdev, qs, k, fused=True),
+                        torch, launches, runs=3)
+                n_wcalls = len(probes.calls["window"])
+                counts = launches.counts()
+                main_path_launched(f"{tag} m={m}", counts)
+                same_as_fused(f"{tag} m={m}", pts32, qs, inputs, wres, kres,
+                              f"protocols at m={m}")
+                hit = boxes_intersect_windows(sdev.shard_lo, sdev.shard_hi,
+                                              los.astype(np.float32), his.astype(np.float32))
+                minds = boxes_mindist_sq(sdev.shard_lo, sdev.shard_hi, qs.astype(np.float32))
+                kcalls = probes.calls["knn"][len(probes.calls["knn"]) // 3 * 2:]
+                homes = len(np.unique(np.argmin(minds, axis=1)))
+                rec.update(
+                    launches=counts,
+                    window_dispatches=n_wcalls // 3,
+                    shards_per_window=float(hit.sum(axis=1).mean()),
+                    windows_per_shard=hit.sum(axis=0).tolist(),
+                    round1_home_shards=homes,
+                    knn_dispatches=len(kcalls),
+                    round2_pairs=int(sum(c for _, c in kcalls[homes:])),
+                    round2_queries_per_shard=[int(sum(c for s, c in kcalls[homes:] if s == j))
+                                              for j in range(sdev.m)])
+                out[f"static_m{m}"] = rec
+                log(f"[{tag}] m={m}: export {rec['export_s']:.3f} s "
+                    f"({rec['points_per_shard']} points); windows {rec['window']}; k-NN "
+                    f"{rec['knn']}; {rec['shards_per_window']:.3f} shards per window, "
+                    f"{homes} round-1 home shards, {rec['round2_pairs']} round-2 "
+                    f"(query, shard) pairs {rec['round2_queries_per_shard']}; every answer "
+                    f"equals the fused batch's; {smi}")
+                del sdev, wres, kres
+            torch.cuda.empty_cache()
+
+            # -- static server, microbatches of 64
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv = rt.DeviceQueryServer.from_index(index, shards=SHARDS_SERVED, device=device)
+            torch.cuda.synchronize()
+            boot = time.perf_counter() - t0
+            current["sdev"] = srv.sdev
+            launches.reset()
+            walls = {}
+            t0 = time.perf_counter()
+            wres = srv.window(los, his)
+            walls["window"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            kres = srv.knn(qs, k)
+            walls["knn"] = time.perf_counter() - t0
+            main_path_launched(f"{tag} server", launches.counts())
+            same_as_fused(f"{tag} server", pts32, qs, inputs, wres, kres,
+                          f"the shards={SHARDS_SERVED} server")
+            serving_zero_faults(f"{tag} server", srv.stats)
+            out["server"] = {"boot_s": boot, "wall_s": walls, "stats": dict(vars(srv.stats)),
+                             "upload_stats": srv.upload_stats.as_dict(),
+                             "launches": launches.counts()}
+            log(f"[{tag}] shards={SHARDS_SERVED} server: boot {boot:.3f} s; {walls} over "
+                f"{srv.stats.microbatches} microbatches of 64; every answer equals the fused "
+                f"batch's; {smi}")
+            if profile:
+                w_lo, w_hi, q64 = los[:64], his[:64], qs[:64]
+                out["server"]["profile"] = profile_batches({
+                    "window": lambda: srv.window(w_lo, w_hi),
+                    "knn": lambda: srv.knn(q64, k)}, torch)
+                log(f"[{tag}] profile (warm sharded microbatches): "
+                    f"{out['server']['profile']}")
+            del srv, wres, kres
+            torch.cuda.empty_cache()
+
+            # -- outage: shard 1 dead, then repair([1])
+            plan = FaultPlan([FaultRule("shard_dispatch", rate=1.0, match={"shard": 1})],
+                             seed=0)
+            srv = rt.DeviceQueryServer.from_index(
+                index, shards=SHARDS_SERVED, fault_plan=plan, breaker_threshold=1,
+                breaker_cooldown_s=1e9, retry=RetryPolicy(max_attempts=2, sleep=lambda s: 0),
+                device=device)
+            current["sdev"] = srv.sdev
+            owned = np.zeros(n, dtype=bool)
+            ids1 = srv.sdev.shards[1].host_ids
+            owned[ids1[ids1 >= 0]] = True
+            wres, wcerts = srv.window(los, his, return_certs=True)
+            kres, kcerts = srv.knn(qs, k, return_certs=True)
+            sdev = srv.sdev
+            hit1 = boxes_intersect_windows(sdev.shard_lo[1:2], sdev.shard_hi[1:2],
+                                           los.astype(np.float32), his.astype(np.float32))[:, 0]
+            want_w = inputs["batches"][("window", "f32")]
+            bad = []
+            for i, (got, cert, want) in enumerate(zip(wres, wcerts, want_w)):
+                alive = want[~owned[want]]
+                dropped = pts32[want[owned[want]]]
+                ok = (cert.complete == (not hit1[i]) and np.array_equal(np.sort(got),
+                                                                        np.sort(alive)))
+                if not cert.complete:
+                    ok &= (cert.missing_shards == (1,) and not cert.certified_exact and
+                           bool(((cert.missing_lo[0] <= dropped)
+                                 & (dropped <= cert.missing_hi[0])).all()))
+                if not ok:
+                    bad.append(i)
+            minds1 = boxes_mindist_sq(sdev.shard_lo[1:2], sdev.shard_hi[1:2],
+                                      qs.astype(np.float32))[:, 0]
+            want_k = inputs["batches"][("knn", "f32")][1]
+            n_exact = 0
+            for i, (ids, cert) in enumerate(zip(kres, kcerts)):
+                d2 = brute_d2(pts32[ids], qs[i].astype(np.float32))
+                if cert.missing_shards not in ((), (1,)) or cert.certified_exact != bool(
+                        minds1[i] > d2[-1]):
+                    bad.append(("knn", i))
+                if owned[ids].any() or not np.all(np.diff(d2) >= 0):
+                    bad.append(("knn alive", i))
+                if cert.certified_exact:
+                    n_exact += 1
+                    if not np.array_equal(d2, want_k[i]):
+                        bad.append(("knn exact", i))
+            alive_pts = np.flatnonzero(~owned)
+            for i in range(16):   # exact over the alive shards (brute force)
+                full = brute_d2(pts32[alive_pts], qs[i].astype(np.float32))
+                check_knn(full, np.searchsorted(alive_pts, kres[i]),
+                          brute_d2(pts32[kres[i]], qs[i].astype(np.float32)), k)
+            if bad:
+                raise AssertionError(f"[{tag}] outage answers or certificates wrong at "
+                                     f"{bad[:8]}")
+            n_deg = int(sum(not c.complete for c in wcerts))
+            if not (0 < n_deg < len(los)) or srv.breakers[1].state != "open":
+                raise AssertionError(f"[{tag}] outage: {n_deg} degraded windows, breaker "
+                                     f"{srv.breakers[1].state}")
+            exports = srv.upload_stats["full_exports"]
+            plan.disarm()
+            t0 = time.perf_counter()
+            repaired = srv.repair()
+            torch.cuda.synchronize()
+            repair_s = time.perf_counter() - t0
+            launches.reset()
+            wres2, wc2 = srv.window(los, his, return_certs=True)
+            kres2, kc2 = srv.knn(qs, k, return_certs=True)
+            main_path_launched(f"{tag} repaired", launches.counts())
+            if (repaired != [1] or srv.upload_stats["full_exports"] != exports + 1
+                    or not all(c.complete and c.certified_exact for c in wc2 + kc2)):
+                raise AssertionError(f"[{tag}] repair {repaired}: {srv.upload_stats}")
+            same_as_fused(f"{tag} repaired", pts32, qs, inputs, wres2, kres2, "after repair")
+            out["outage"] = {"degraded_windows": n_deg,
+                             "knn_certified_exact": n_exact,
+                             "knn_missing_shard_1": int(sum(not c.certified_exact
+                                                            for c in kcerts)),
+                             "retries": srv.stats.retries, "repair_s": repair_s,
+                             "stats": dict(vars(srv.stats))}
+            log(f"[{tag}] outage of shard 1: {out['outage']}; certificates name exactly "
+                f"shard 1, answers are the alive shards' share of the brute force; "
+                f"repair([1]) re-exported one shard and every answer equals the fused "
+                f"batch's again; {smi}")
+            del srv, wres, kres, wres2, kres2, owned, alive_pts, plan
+            torch.cuda.empty_cache()
+
+            # -- adaptive: AMBI behind from_ambi(..., shards=4), phase 3a's stream
+            if small_n:
+                pts = osm_like(small_n, seed=7)
+                pts32 = pts.astype(np.float32)
+                buffer_pages = max(int(-(-small_n // leaf_capacity(2)) * 0.05),
+                                   branch_capacity(2) + 1)
+            p = pts32.astype(np.float64)
+            t0 = time.perf_counter()
+            ambi = rt.AMBI(p, buffer_pages)
+            srv = rt.DeviceQueryServer.from_ambi(ambi, shards=SHARDS_SERVED, device=device)
+            torch.cuda.synchronize()
+            boot = time.perf_counter() - t0
+            current["sdev"] = srv.sdev
+            if srv.sdev.m != 1:
+                raise AssertionError(f"[{tag}] adaptive boot planned {srv.sdev.m} shards")
+            rng = np.random.default_rng(13)
+            centres = p[rng.integers(0, len(p), 2)]
+            stream = [(centres[s % 2] + rng.random((64, 2)) * 0.08)
+                      .astype(np.float32).astype(np.float64) for s in range(16)]
+            hw = 0.01
+            refresh_s.clear()
+            launches.reset()
+            batches, answers, replan = [], [], None
+            for b, batch in enumerate(stream):
+                for kind in ("window", "knn"):
+                    st = srv.stats
+                    before = (st.cold_queries, st.shard_refreshes, len(refresh_s))
+                    t = time.perf_counter()
+                    res = (srv.window(batch - hw, batch + hw) if kind == "window"
+                           else srv.knn(batch, k))
+                    wall = time.perf_counter() - t
+                    current["sdev"] = srv.sdev
+                    if replan is None and srv.sdev.m == SHARDS_SERVED:
+                        replan = {"batch": b, "kind": kind,
+                                  "full_exports": srv.upload_stats["full_exports"],
+                                  "shard_refreshes": st.shard_refreshes}
+                    batches.append({"kind": kind, "wall_s": wall,
+                                    "cold": st.cold_queries - before[0],
+                                    "shard_refreshes": st.shard_refreshes - before[1],
+                                    "refresh_s": [s for _, s in refresh_s[before[2]:]]})
+                    answers.append((kind, batch, res))
+            counts = launches.counts()
+            main_path_launched(f"{tag} adaptive", counts)
+            st, up = srv.stats, srv.upload_stats
+            out["adaptive"] = {"n": len(p), "buffer_pages": buffer_pages, "boot_s": boot,
+                               "batches": batches, "replan": replan, "launches": counts,
+                               "stats": dict(vars(st)), "upload_stats": up.as_dict(),
+                               "refresh_s": [s for _, s in refresh_s],
+                               "leaves_per_shard": [s.n_leaves for s in srv.sdev.shards]}
+            log(f"[{tag}] adaptive over {len(p)} points: boot {boot:.3f} s; re-plan {replan}; "
+                f"{st}; uploads {up.as_dict()}; refreshes "
+                f"{[round(s, 4) for _, s in refresh_s]}; batch walls "
+                f"{[round(b_['wall_s'], 4) for b_ in batches]}; {smi}")
+            if replan is None or srv.sdev.m != SHARDS_SERVED or st.shards != SHARDS_SERVED:
+                raise AssertionError(f"[{tag}] the adaptive server never re-planned to "
+                                     f"{SHARDS_SERVED} shards: {st}")
+            if up.full_exports != 1 + SHARDS_SERVED + (st.shard_refreshes - SHARDS_SERVED):
+                raise AssertionError(f"[{tag}] adaptive exports {up.as_dict()} against {st}")
+            serving_zero_faults(f"{tag} adaptive", st)
+            windows = SortedWindows(pts32)
+            for b in (0, 4, 8, 12, 15):
+                for kind, batch, res in answers[2 * b: 2 * b + 2]:
+                    b32 = batch.astype(np.float32)
+                    for i in range(len(batch) if kind == "window" else 16):
+                        if kind == "window":
+                            if not np.array_equal(np.sort(res[i]), windows(
+                                    b32[i] - np.float32(hw), b32[i] + np.float32(hw))):
+                                raise AssertionError(f"[{tag}] adaptive window {b}/{i}")
+                        else:
+                            full = brute_d2(pts32, b32[i])
+                            check_knn(full, res[i], full[res[i]], k)
+            log(f"[{tag}] adaptive: windows of batches 0, 4, 8, 12, 15 and 16 k-NN queries "
+                f"of each equal the brute force")
+            del srv, ambi, answers, windows
+            torch.cuda.empty_cache()
+
+            # -- streaming: from_streaming(..., shards=4), phase 3s's traffic
+            t0 = time.perf_counter()
+            sstream = rt.StreamingIndex(p, buffer_pages=buffer_pages)
+            base_s = time.perf_counter() - t0
+            del p
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv = rt.DeviceQueryServer.from_streaming(sstream, microbatch=STREAM_BATCH,
+                                                      shards=SHARDS_SERVED, device=device)
+            torch.cuda.synchronize()
+            boot = time.perf_counter() - t0
+            current["sdev"] = srv.sdev
+            n0 = sstream.n_ids
+            feed = (np.random.default_rng(5).random((STREAM_INSERTS * STREAM_PER_INSERT, 2))
+                    .astype(np.float32).astype(np.float64))
+            drng = np.random.default_rng(17)
+            base_dels = drng.choice(n0, 32 * (STREAM_INSERTS // 4), replace=False)
+            new_dels: list = []
+            w_lo, w_hi, q64 = (x[:STREAM_BATCH].astype(np.float32).astype(np.float64)
+                               for x in (los, his, qs))
+            insert_s, rounds, sanswers = [], [], []
+            refresh_s.clear()
+            launches.reset()
+            for i in range(STREAM_INSERTS):
+                t = time.perf_counter()
+                srv.insert(feed[i * STREAM_PER_INSERT:(i + 1) * STREAM_PER_INSERT])
+                torch.cuda.synchronize()
+                insert_s.append(time.perf_counter() - t)
+                current["sdev"] = srv.sdev
+                if (i + 1) % 4 == 0:
+                    j = (i + 1) // 4 - 1
+                    ins = np.setdiff1d(np.arange(n0, sstream.n_ids), new_dels)
+                    new = drng.choice(ins, 16, replace=False)
+                    new_dels.extend(new.tolist())
+                    srv.delete(np.concatenate([base_dels[32 * j:32 * (j + 1)], new]))
+                if srv._stream_is_stale():
+                    raise AssertionError(f"[{tag}] the sharded export went stale")
+                if (i + 1) % 8 == 0:
+                    t = time.perf_counter()
+                    wres = srv.window(w_lo, w_hi)
+                    w_s = time.perf_counter() - t
+                    t = time.perf_counter()
+                    kres = srv.knn(q64, k)
+                    rounds.append({"after_insert": i + 1, "k_eff": srv._k_eff(k),
+                                   "window_s": w_s, "knn_s": time.perf_counter() - t,
+                                   "shard_refreshes": srv.stats.shard_refreshes})
+                    sanswers.append((wres, kres, sstream.live_mask().copy()))
+                    log(f"[{tag}] streaming round {rounds[-1]}")
+            counts = launches.counts()
+            main_path_launched(f"{tag} streaming", counts)
+            st, up = srv.stats, srv.upload_stats
+            n_fed = STREAM_INSERTS * STREAM_PER_INSERT
+            out["streaming"] = {
+                "n": n0, "base_load_s": base_s, "boot_s": boot, "insert_s": insert_s,
+                "points_per_s": n_fed / sum(insert_s), "rounds": rounds, "launches": counts,
+                "refresh_s": [s for _, s in refresh_s], "stats": dict(vars(st)),
+                "upload_stats": up.as_dict(),
+                "stream": {c: getattr(sstream, c) for c in
+                           ("flushes", "fusions", "merges", "shadow")}}
+            log(f"[{tag}] sharded streaming over {n0} points: base {base_s:.3f} s, boot "
+                f"{boot:.3f} s; {out['streaming']['points_per_s']:.1f} points/s; refreshes "
+                f"{[round(s, 4) for _, s in refresh_s]}; {st}; uploads {up.as_dict()}; "
+                f"launches {counts}; {smi}")
+            if not (st.stream_reshards == 0
+                    and 0 < st.shard_refreshes < SHARDS_SERVED * st.stream_syncs):
+                raise AssertionError(f"[{tag}] sharded streaming: {st}")
+            serving_zero_faults(f"{tag} streaming", st)
+            for wres, kres, live in sanswers:
+                check_live_answers(tag, sstream.points[:len(live)], live, w_lo, w_hi, q64,
+                                   wres, kres, k, STREAM_CHECK)
+            log(f"[{tag}] every streaming round: no deleted id; the first {STREAM_CHECK} "
+                f"windows and k-NN queries equal a brute force over the live rows")
+            if profile:
+                extra = (np.random.default_rng(29).random((2048, 2))
+                         .astype(np.float32).astype(np.float64))
+                out["streaming"]["profile_sync"] = profile_batches(
+                    {"insert_2048": lambda: srv.insert(extra)}, torch)
+                log(f"[{tag}] profile (an insert of 2048 with its sync): "
+                    f"{out['streaming']['profile_sync']}")
+            del srv, sstream, sanswers
+    finally:
+        for cls, name, orig in restore:
+            setattr(cls, name, orig)
+    out["launch_shapes"] = recorder.shapes
+    return out, recorder.calls
+
+
+# --------------------------------------------------------------------------
 # the retrieval path (balanced grid index + RetrievalServer)
 # --------------------------------------------------------------------------
 def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
@@ -1643,6 +2117,13 @@ def main(argv=None) -> int:
                                                     results["d2"]["buffer_pages"], 16, torch,
                                                     rt, launches, smi=smi,
                                                     profile=args.profile)
+    results["sharded_d2"], shcalls2 = sharded_path("sharded d=2", pts, inputs,
+                                                   results["d2"]["buffer_pages"], 16, torch,
+                                                   rt, launches, smi=smi,
+                                                   profile=args.profile)
+    log(f"insert rate: {results['sharded_d2']['streaming']['points_per_s']:.1f} points/s "
+        f"sharded (phase 3h), {results['stream_d2']['points_per_s']:.1f} on one device "
+        f"(phase 3s)")
     results["unfused_d2"], ucalls2 = unfused_path("d=2", inputs, 16, torch, rt, launches,
                                                   profile=args.profile)
     results["window_count_d2"], wcalls2 = window_count_path("d=2", pts, inputs, torch,
@@ -1666,9 +2147,10 @@ def main(argv=None) -> int:
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
     k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
-    # phase 3a's and 3s's calls (64-query microbatches, the partial export,
-    # the streaming mirror's export), held bit for bit but not timed
-    ks = kernel_phase({**scalls2, **stcalls2}, torch, timed=False)
+    # phase 3a's, 3s's and 3h's calls (64-query microbatches, the partial
+    # export, the streaming mirror's export, the shards' ragged batches),
+    # held bit for bit but not timed
+    ks = kernel_phase({**scalls2, **stcalls2, **shcalls2}, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

@@ -8,6 +8,9 @@ card's partial export, cold ones refined by the host engine, grafts
 uploaded as deltas) or streaming over a live ``StreamingIndex``
 (inserts and deletes, its tiers mirrored on the card), with a graft
 journal, snapshot barriers and recovery, behind the async ``Frontend``;
+sharded serving (``ShardedDeviceTable``: m per-shard exports behind a
+router, windows fanned out to the qualified shards, the two-round
+certified k-NN protocol) in each of those modes;
 the paper's NumPy engine and oracles; the
 brute-force count ``kernels.ops.window_count``; and the retrieval path:
 the balanced ``GridIndex`` built on the device, its routing, window
@@ -23,13 +26,17 @@ from .core import (
     IOStats,
     NodeTable,
     PageStore,
+    ShardedDeviceTable,
     StreamingIndex,
     bulk_load,
     knn_oracle,
     knn_query,
+    knn_query_batch_sharded,
     knn_query_batch_torch,
+    parallel_bulk_load,
     window_oracle,
     window_query,
+    window_query_batch_sharded,
     window_query_batch_torch,
 )
 from .serve import (
@@ -58,12 +65,16 @@ __all__ = [
     "RetrievalServer",
     "RetrievalStats",
     "RetryPolicy",
+    "ShardedDeviceTable",
     "StreamingIndex",
     "bulk_load",
     "knn_oracle",
     "knn_query",
+    "knn_query_batch_sharded",
     "knn_query_batch_torch",
+    "parallel_bulk_load",
     "window_oracle",
     "window_query",
+    "window_query_batch_sharded",
     "window_query_batch_torch",
 ]

@@ -1,9 +1,17 @@
 """Host layers (copies of the JAX package's NumPy modules: FMBI, AMBI,
-streaming ingest and the NumPy query engine among them), the device query
-engine and the balanced grid index of the port."""
+streaming ingest, parallel bulk loading and the NumPy query engine among
+them), the device query engine, its sharded form and the balanced grid
+index of the port."""
 from .ambi import AMBI
 from .convert import grid_index_from_arrays, index_from_arrays, table_from_arrays
-from .distributed_torch import CompletenessCertificate, ShardUnavailable
+from .distributed import ParallelBuild, parallel_bulk_load, parallel_window_cost
+from .distributed_torch import (
+    CompletenessCertificate,
+    ShardedDeviceTable,
+    ShardUnavailable,
+    knn_query_batch_sharded,
+    window_query_batch_sharded,
+)
 from .grid_index import GridIndex
 from .fmbi import Index, Node, bulk_load, merge_branches, refine_subspace
 from .nodetable import NodeTable, NodeView, compress_boxes_bf16
@@ -39,15 +47,20 @@ __all__ = [
     "NodeTable",
     "NodeView",
     "PageStore",
+    "ParallelBuild",
+    "ShardedDeviceTable",
     "UploadStats",
     "branch_capacity",
     "bulk_load",
     "compress_boxes_bf16",
     "grid_index_from_arrays",
     "index_from_arrays",
+    "knn_query_batch_sharded",
     "knn_query_batch_torch",
     "leaf_capacity",
     "merge_branches",
+    "parallel_bulk_load",
+    "parallel_window_cost",
     "refine_subspace",
     "ShardUnavailable",
     "StreamingIndex",
@@ -55,5 +68,6 @@ __all__ = [
     "window_oracle",
     "window_query",
     "window_query_batch",
+    "window_query_batch_sharded",
     "window_query_batch_torch",
 ]

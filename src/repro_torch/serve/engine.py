@@ -41,7 +41,13 @@ import torch
 from ..analysis import runtime as _san
 from ..core import grid_index
 from ..core.ambi import AMBI
-from ..core.distributed_torch import CompletenessCertificate, ShardUnavailable
+from ..core.distributed_torch import (
+    CompletenessCertificate,
+    ShardedDeviceTable,
+    ShardUnavailable,
+    knn_query_batch_sharded,
+    window_query_batch_sharded,
+)
 from ..core.geometry import boxes_intersect_windows, boxes_mindist_sq
 from ..core.nodetable import NodeTable
 from ..core.queries_torch import (
@@ -170,6 +176,7 @@ class DeviceQueryStats:
     hot_queries: int = 0       # answered entirely on the device
     cold_queries: int = 0      # reached unindexed space -> host + refine
     grafts: int = 0            # unrefined rows refined by the serving loop
+    shard_refreshes: int = 0   # shards re-exported by ShardedDeviceTable
     delta_refreshes: int = 0   # DeviceTable.apply_delta swaps
     compactions: int = 0       # NodeTable.compact vacuums
     retries: int = 0           # dispatch/refine attempts beyond the first
@@ -181,12 +188,7 @@ class DeviceQueryStats:
     inserts: int = 0           # streamed points ingested
     deletes: int = 0           # ids tombstoned
     stream_syncs: int = 0      # structural device syncs (flush/merge shipped)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md {item})"
-    )
+    stream_reshards: int = 0   # full re-shard fallbacks (should stay 0)
 
 
 class StreamSyncError(RuntimeError):
@@ -219,6 +221,12 @@ class DeviceQueryServer:
     queries_torch parity contract); the simulated LRU I/O accounting stays
     with the host engine.
 
+    ``shards=m`` serves through the *sharded* engine instead
+    (``core/distributed_torch.py``): the table partitions into m
+    per-shard exports behind a subspace-MBB router, all on ``device``;
+    windows fan out only to qualified shards, and k-NN runs the two-round
+    certified protocol — same results, distributed execution.
+
     ``adaptive=True`` (boot via :meth:`from_ambi`) serves an AMBI table
     that may be arbitrarily unrefined, down to the single-unrefined-root
     state, where the device holds nothing but the root's cold box:
@@ -231,29 +239,29 @@ class DeviceQueryServer:
         charges the paper's I/O and grafts the touched subspaces;
       * after each microbatch the grafts are pushed to the device
         incrementally: ``DeviceTable.apply_delta`` uploads only the new
-        leaf blocks into a double-buffered swap, and ``NodeTable.compact``
-        vacuums dead perm segments once grafting has bloated the host
-        table past ``compact_slack``.
+        leaf blocks into a double-buffered swap (sharded serving
+        re-exports only the shards owning grafted subspaces), and
+        ``NodeTable.compact`` vacuums dead perm segments once grafting
+        has bloated the host table past ``compact_slack``.
 
     Streaming (boot via :meth:`from_streaming`): the host
     ``StreamingIndex`` is authoritative, the card serves a
     ``DeviceMirror`` of its tiers (rows are never removed, so every
     flush or merge ships as one ``apply_delta``), tombstones filter on the
     host and the not-yet-flushed delta rows are unioned in by brute force.
+    A sharded streaming server rewrites its shard plans through each sync
+    and re-exports only the shards whose content changed.
 
-    The resilience plane treats the one device as shard 0: each dispatch
-    passes the ``shard_dispatch`` fault point under ``retry`` and a
-    circuit breaker; an outage past them raises, degrades to an
-    incomplete certificate (``return_certs=True``), or, on an adaptive or
-    streaming server, is answered exactly by the host engine.
+    The resilience plane (the one device is shard 0 unless sharded): each
+    dispatch passes the ``shard_dispatch`` fault point under ``retry`` and
+    a circuit breaker per shard; an outage past them raises, degrades to
+    an incomplete certificate (``return_certs=True``), or, on an adaptive
+    or streaming server, is answered exactly by the host engine.
 
     Only an injected :class:`FaultError` is retried or turned into an
     outage: any other error of a dispatch, an upload, a journal append or
     a snapshot (a kernel that fails to build or launch, a CUDA error, a
     failing disk) propagates to the caller.
-
-    ``shards > 1`` (the sharded engine) is not ported yet and raises
-    ``NotImplementedError``.
     """
 
     # overlay construction defaults — shared by the live ingest path and
@@ -269,8 +277,6 @@ class DeviceQueryServer:
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
                  clock=None, journal_path=None, snapshot_path=None,
                  device=None):
-        if shards is not None and shards > 1:
-            raise _not_ported("sharded serving (shards > 1)", "A.5")
         self.device = resolve_device(device)
         if adaptive:
             if ambi is None:
@@ -307,18 +313,30 @@ class DeviceQueryServer:
         self.breakers: dict = {}
         # table RW-lock: device dispatches and cold-mask computations read
         # the host table; adaptive refinement (graft/apply_delta/compact)
-        # and repair write it.  Single-threaded callers pay two
+        # and shard repair write it.  Single-threaded callers pay two
         # uncontended acquisitions.
         self.table_lock = TableLock()
         # per-server upload accounting
         self.upload_stats = UploadStats()
         if adaptive and fault_plan is not None:
             ambi.store.fault_hook = fault_plan.pagestore_hook()
-        self.dev = DeviceTable.from_table(
-            table, points, partial=adaptive, stats=self.upload_stats,
-            compressed=compressed, device=self.device,
-        )
+        if shards is not None and shards > 1:
+            self.sdev = ShardedDeviceTable.from_table(
+                table, points, shards, partial=adaptive,
+                stats=self.upload_stats, compressed=compressed,
+                device=self.device,
+            )
+            self.dev = None
+            n_shards = self.sdev.m
+        else:
+            self.dev = DeviceTable.from_table(
+                table, points, partial=adaptive, stats=self.upload_stats,
+                compressed=compressed, device=self.device,
+            )
+            self.sdev = None
+            n_shards = 1
         self.table = table
+        self.requested_shards = shards if shards is not None else 1
         self.adaptive = adaptive
         self.ambi = ambi
         self._points = points
@@ -327,8 +345,13 @@ class DeviceQueryServer:
         # moves rows, so a lock-split reader can detect that its captured
         # row indices went stale before it re-enters as a writer
         self._table_version = 0
-        # streaming: a tier upload exhausted its retries — queries serve
-        # host-side (exact) until the next sync re-uploads
+        # sharded streaming: shards a failed sync left behind, and the
+        # summaries of syncs whose upload exhausted its retries (their plan
+        # surgery never ran) — both re-enter the next sync
+        self._stream_stale_shards: set[int] = set()
+        self._stream_pending_syncs: list = []
+        # single-device streaming: a tier upload exhausted its retries —
+        # queries serve host-side (exact) until the next sync re-uploads
         self._stream_device_stale = False
         # streaming: an upload failed with an error that is not an
         # injected fault — it was raised to the inserter, and queries
@@ -337,7 +360,7 @@ class DeviceQueryServer:
         self.compact_slack = float(compact_slack)
         self.microbatch = int(microbatch)
         self.compressed = bool(compressed)
-        self.stats = DeviceQueryStats()
+        self.stats = DeviceQueryStats(shards=n_shards)
         # durability plane (adaptive or streaming): write-ahead journal +
         # snapshot barriers; recovery = snapshot + replay (see recover())
         self.journal = None
@@ -438,11 +461,12 @@ class DeviceQueryServer:
         self.stats.retries += 1
 
     def _shard_runner(self, deadline):
-        """The resilience hook every device dispatch goes through (the one
-        device is shard 0): breaker fail-fast, then bounded retries (each
-        attempt passing the shard's fault point), then breaker
-        accounting.  A shard that exhausts its retries surfaces as
-        :class:`ShardUnavailable`, the degraded-mode signal."""
+        """The resilience hook every device dispatch goes through (the
+        sharded protocols pass each shard's id; the one device of an
+        unsharded server is shard 0): breaker fail-fast, then bounded
+        retries (each attempt passing the shard's fault point), then
+        breaker accounting.  A shard that exhausts its retries surfaces
+        as :class:`ShardUnavailable`, the degraded-mode signal."""
 
         def run(s: int, thunk):
             br = self._breaker(s)
@@ -471,10 +495,10 @@ class DeviceQueryServer:
         return run
 
     def repair(self, shard_ids=None) -> list[int]:
-        """Re-export the device table from the host ``NodeTable`` (a
-        streaming server's mirror) and close the breakers; with no
-        argument, repairs when a breaker is not closed.  Returns the
-        repaired shard ids (``[0]`` or ``[]``)."""
+        """Re-export failed shards from the host ``NodeTable`` (a
+        streaming server's mirror) and close their breakers; with no
+        argument, repairs every shard whose breaker is not closed.
+        Returns the repaired shard ids."""
         if shard_ids is None:
             shard_ids = [
                 s for s, br in self.breakers.items() if br.state != "closed"
@@ -483,14 +507,25 @@ class DeviceQueryServer:
         if not shard_ids:
             return []
         with self.table_lock.write():
-            t = self.ambi.table if self.adaptive else self.table
-            self.dev = DeviceTable.from_table(
-                t, self.points, partial=self.adaptive,
-                stats=self.upload_stats, compressed=self.compressed,
-                device=self.device,
-            )
-            self._stream_device_stale = False
-            self._stream_device_error = None
+            if self.sdev is not None:
+                self.sdev.refresh(shard_ids)
+                self.stats.shard_refreshes += len(shard_ids)
+                if (self._stream_device_error is not None
+                        and not self._stream_pending_syncs
+                        and self._stream_stale_shards <= set(shard_ids)):
+                    # every shard a failed sync left behind is re-exported
+                    self._stream_stale_shards = set()
+                    self._stream_device_stale = False
+                    self._stream_device_error = None
+            else:
+                t = self.ambi.table if self.adaptive else self.table
+                self.dev = DeviceTable.from_table(
+                    t, self.points, partial=self.adaptive,
+                    stats=self.upload_stats, compressed=self.compressed,
+                    device=self.device,
+                )
+                self._stream_device_stale = False
+                self._stream_device_error = None
         for s in shard_ids:
             self._breaker(s).reset()
         return shard_ids
@@ -532,9 +567,10 @@ class DeviceQueryServer:
         """Per-query dataset row ids inside each [lo, hi] box.
 
         ``return_certs=True`` opts into degraded serving: the return is
-        ``(results, certs)`` and a device outage (breaker open / retries
-        exhausted) yields empty results whose ``CompletenessCertificate``
-        names the root box as unanswered instead of raising.  Adaptive
+        ``(results, certs)`` and a shard outage (breaker open / retries
+        exhausted) yields partial results whose
+        ``CompletenessCertificate`` names the unanswered subspaces (the
+        root box for an unsharded server) instead of raising.  Adaptive
         serving answers outages host-side, so its certificates are always
         intact.
 
@@ -564,6 +600,16 @@ class DeviceQueryServer:
                 res = self._window_streaming(
                     los[a:b], his[a:b], runner, return_certs=return_certs,
                 )
+                if return_certs:
+                    res, cs = res
+                    certs.extend(cs)
+                out.extend(res)
+            elif self.sdev is not None:
+                with self.table_lock.read():
+                    res = window_query_batch_sharded(
+                        self.sdev, los[a:b], his[a:b], runner=runner,
+                        return_certs=return_certs,
+                    )
                 if return_certs:
                     res, cs = res
                     certs.extend(cs)
@@ -601,11 +647,16 @@ class DeviceQueryServer:
             max_rounds: int | None = None) -> list[np.ndarray]:
         """Per-query ascending-distance row ids (length min(k, n)).
 
-        Degraded mode mirrors :meth:`window`.  ``max_rounds`` caps the
-        device engine's budget-escalation rounds (the brownout tier); a
-        capped query returns its best-effort answer with
-        ``certified_exact=False`` on its certificate.  The adaptive host
-        path keeps its own exactness machinery and ignores the cap.
+        Degraded mode mirrors :meth:`window`; a k-NN certificate can be
+        ``certified_exact`` even when shards were down (the pruning
+        radius clears their subspaces — see the distributed protocol).
+
+        ``max_rounds`` caps the device engine's budget-escalation rounds
+        (the brownout tier); a capped query returns its best-effort answer
+        with ``certified_exact=False`` on its certificate.  The cap
+        applies to the single-table dispatch; the sharded two-round
+        protocol and the adaptive host path keep their own exactness
+        machinery and ignore it.
         """
         qs = self._validate_batch(qs, "qs")
         if not isinstance(k, (int, np.integer)) or int(k) < 1:
@@ -632,6 +683,16 @@ class DeviceQueryServer:
                 res = self._knn_streaming(
                     qs[a:b], k, runner, return_certs=return_certs,
                 )
+                if return_certs:
+                    res, cs = res
+                    certs.extend(cs)
+                out.extend(res)
+            elif self.sdev is not None:
+                with self.table_lock.read():
+                    res = knn_query_batch_sharded(
+                        self.sdev, qs[a:b], k, runner=runner,
+                        return_certs=return_certs,
+                    )
                 if return_certs:
                     res, cs = res
                     certs.extend(cs)
@@ -725,13 +786,24 @@ class DeviceQueryServer:
                 cold_q = np.asarray(
                     self._cold_mask_unlocked(los[a:b], his[a:b])
                 )
-                res, cold = runner(0, lambda a=a, b=b: (
-                    window_query_batch_torch(
-                        self.dev, los[a:b], his[a:b], return_cold=True,
-                    )
-                ))
-                res = list(res)
-                cold_q = cold_q | np.asarray(cold).any(axis=1)
+                if self.sdev is not None:
+                    res = [np.zeros(0, dtype=np.int64)] * (b - a)
+                    hot = np.flatnonzero(~cold_q)
+                    if hot.size:
+                        hres, _ = window_query_batch_sharded(
+                            self.sdev, los[a:b][hot], his[a:b][hot],
+                            runner=runner, return_certs=True,
+                        )
+                        for qi, ids in zip(hot, hres):
+                            res[qi] = ids
+                else:
+                    res, cold = runner(0, lambda a=a, b=b: (
+                        window_query_batch_torch(
+                            self.dev, los[a:b], his[a:b], return_cold=True,
+                        )
+                    ))
+                    res = list(res)
+                    cold_q = cold_q | np.asarray(cold).any(axis=1)
                 for i in range(b - a):
                     certs.append(
                         self._cold_boxes_cert(los[a + i], his[a + i])
@@ -765,13 +837,21 @@ class DeviceQueryServer:
             runner = self._shard_runner(deadline)
             with self.table_lock.read():
                 t = self.ambi.table
-                res, exact = runner(0, lambda a=a, b=b: (
-                    knn_query_batch_torch(
-                        self.dev, qs[a:b], k,
-                        max_rounds=max_rounds, return_exact=True,
+                if self.sdev is not None:
+                    res, _cs = knn_query_batch_sharded(
+                        self.sdev, qs[a:b], k, runner=runner,
+                        return_certs=True,
                     )
-                ))
-                res = list(res)
+                    res = list(res)
+                    exact = np.ones(b - a, dtype=bool)
+                else:
+                    res, exact = runner(0, lambda a=a, b=b: (
+                        knn_query_batch_torch(
+                            self.dev, qs[a:b], k,
+                            max_rounds=max_rounds, return_exact=True,
+                        )
+                    ))
+                    res = list(res)
                 cold_q = self._knn_cold_mask(qs[a:b], res, k)
                 unref = np.flatnonzero(t.unrefined)
                 for i in range(b - a):
@@ -871,17 +951,46 @@ class DeviceQueryServer:
             t = self.ambi.table
             unref = np.flatnonzero(t.unrefined)
             version = self._table_version
-            try:
-                res, cold = runner(0, lambda: window_query_batch_torch(
-                    self.dev, los, his, return_cold=True,
-                ))
-                out = list(res)
-                cold_q = cold.any(axis=1)
-            except ShardUnavailable:
-                # whole-device outage: host serves the full microbatch
-                out = [None] * los.shape[0]
-                cold_q = np.ones(los.shape[0], dtype=bool)
-                self.stats.host_fallbacks += los.shape[0]
+            if self.sdev is not None:
+                # reaching an unrefined row == intersecting its MBB (hit
+                # sets are downward-closed), so the host-side router test
+                # equals the frontier's cold mask without a cross-shard
+                # gather — and, being known up front, lets the device
+                # serve only the hot part
+                cold_q = (
+                    boxes_intersect_windows(
+                        t.mbb_lo[unref], t.mbb_hi[unref],
+                        np.asarray(los, dtype=np.float64),
+                        np.asarray(his, dtype=np.float64),
+                    ).any(axis=1)
+                    if len(unref)
+                    else np.zeros(los.shape[0], dtype=bool)
+                )
+                out: list = [None] * los.shape[0]
+                hot = np.flatnonzero(~cold_q)
+                if hot.size:
+                    res, cs = window_query_batch_sharded(
+                        self.sdev, los[hot], his[hot], runner=runner,
+                        return_certs=True,
+                    )
+                    for qi, ids, cert in zip(hot, res, cs):
+                        if cert.complete:
+                            out[qi] = ids
+                        else:  # dead shard: exact host answer instead
+                            cold_q[qi] = True
+                            self.stats.host_fallbacks += 1
+            else:
+                try:
+                    res, cold = runner(0, lambda: window_query_batch_torch(
+                        self.dev, los, his, return_cold=True,
+                    ))
+                    out = list(res)
+                    cold_q = cold.any(axis=1)
+                except ShardUnavailable:
+                    # whole-device outage: host serves the full microbatch
+                    out = [None] * los.shape[0]
+                    cold_q = np.ones(los.shape[0], dtype=bool)
+                    self.stats.host_fallbacks += los.shape[0]
         if cold_q.any():
             with self.table_lock.write():
                 if self._table_version != version:
@@ -900,14 +1009,24 @@ class DeviceQueryServer:
         with self.table_lock.read():
             t = self.ambi.table
             degraded = np.zeros(qs.shape[0], dtype=bool)
-            try:
-                res = list(runner(0, lambda: knn_query_batch_torch(
-                    self.dev, qs, k
-                )))
-            except ShardUnavailable:
-                res = [np.zeros(0, dtype=np.int64)] * qs.shape[0]
-                degraded[:] = True
-                self.stats.host_fallbacks += qs.shape[0]
+            if self.sdev is not None:
+                res, cs = knn_query_batch_sharded(
+                    self.sdev, qs, k, runner=runner, return_certs=True,
+                )
+                res = list(res)
+                for i, cert in enumerate(cs):
+                    if not cert.certified_exact:
+                        degraded[i] = True
+                        self.stats.host_fallbacks += 1
+            else:
+                try:
+                    res = list(runner(0, lambda: knn_query_batch_torch(
+                        self.dev, qs, k
+                    )))
+                except ShardUnavailable:
+                    res = [np.zeros(0, dtype=np.int64)] * qs.shape[0]
+                    degraded[:] = True
+                    self.stats.host_fallbacks += qs.shape[0]
             out = list(res)
             cold_q = self._knn_cold_mask(qs, res, k) | degraded
             before_unref = np.flatnonzero(t.unrefined)
@@ -1027,10 +1146,11 @@ class DeviceQueryServer:
 
     def _sync_stream_device(self) -> None:  # analysis: caller-holds-write
         """Ship the stream's structural events (tier attach/merge) to the
-        device.  Caller holds the writer lock.  One ``apply_delta`` of the
-        mirror (only new leaf blocks upload) against the stream's live
-        point buffer, which moves as it grows.  The adaptive overlay has
-        no mirror — its tiers serve host-side.
+        device.  Caller holds the writer lock.  Single device: one
+        ``apply_delta`` of the mirror (only new leaf blocks upload)
+        against the stream's live point buffer, which moves as it grows.
+        Sharded: plan surgery + per-changed-shard refresh.  The adaptive
+        overlay has no mirror — its tiers serve host-side.
 
         An upload that exhausts its retries (injected faults) leaves the
         device stale and the host authoritative until a later sync lands
@@ -1039,19 +1159,25 @@ class DeviceQueryServer:
         if self.mirror is None:
             return
         info = self.mirror.sync()
-        if info is None and not self._stream_device_stale:
+        if (info is None and not self._stream_stale_shards
+                and not self._stream_device_stale):
             return
         self.stats.stream_syncs += 1
 
         def upload():
             if self.fault_plan is not None:
                 self.fault_plan.fire("apply_delta")
-            self.dev = self.dev.apply_delta(
-                self.mirror.table, self.stream.points
-            )
+            if self.sdev is not None:
+                self._stream_refresh_shards(
+                    self._stream_pending_syncs + [info]
+                )
+            else:
+                self.dev = self.dev.apply_delta(
+                    self.mirror.table, self.stream.points
+                )
+                self.stats.delta_refreshes += 1
             self._stream_device_stale = False
             self._stream_device_error = None
-            self.stats.delta_refreshes += 1
 
         try:
             self.retry.call(
@@ -1060,13 +1186,107 @@ class DeviceQueryServer:
             )
         except RetryExhausted:
             # device stale, host authoritative: streaming queries serve
-            # host-side until a later sync lands the upload (re-entered
-            # on the next sync even if it carries no new events)
+            # host-side until a later sync lands the upload, re-entered on
+            # the next sync even if it carries no new events.  Sharded
+            # keeps this sync's summary for the plan surgery it missed
+            # (the reference drops it, and its shards never receive the
+            # flushed tier: ROADMAP C.6).
+            if self.sdev is not None and info is not None:
+                self._stream_pending_syncs.append(info)
             self._stream_device_stale = True
         except Exception as e:
+            # not an injected fault: raised, never answered from the host
+            # (sharded: the shards left behind stay in _stream_stale_shards
+            # for the next sync to re-export)
             self._stream_device_stale = True
             self._stream_device_error = e
             raise
+
+    def _stream_refresh_shards(self, infos) -> None:  # analysis: caller-holds-write
+        """Rewrite the shard plans through the mirror's sync summaries
+        (``None`` where a sync carried no event), in order, and re-export
+        only the shards whose content changed.
+
+        Root copies that merely *moved* (the per-sync root-block rebuild,
+        fusion adopting old roots) are remapped in the plan without a
+        refresh — their subtree content is identical.  Shards lose plan
+        entries when a rebuild-merge retires their tiers and gain the
+        merged/attached roots back, preferring empty shards then the
+        smallest."""
+        sdev = self.sdev
+        # the stream's buffer reallocates as it grows; refresh gathers
+        # coordinates through source_points, so rebind the live view
+        sdev.source_points = self.stream.points
+        changed = set(self._stream_stale_shards)
+        self._stream_stale_shards = set()
+        self._stream_pending_syncs = []
+        for info in infos:
+            if info is None:
+                continue
+            remap = info["remap"]
+            retired = info["retired"]
+            plans = sdev.shard_roots
+            for s in range(sdev.m):
+                new_plan = []
+                for r in plans[s]:
+                    r = int(remap.get(int(r), int(r)))
+                    if any(lo <= r < hi for lo, hi in retired):
+                        changed.add(s)
+                        continue
+                    if r not in new_plan:
+                        new_plan.append(r)
+                plans[s] = new_plan
+            placed = {r for p in plans for r in p}
+            pool = [int(r) for r in info["add_rows"] if r not in placed]
+            n_empty = sum(1 for p in plans if not p)
+            if pool and len(pool) < n_empty:
+                # a cascade merged everything a shard owned into one tier:
+                # expand the widest new root into its child rows (the same
+                # frontier move shard_plan makes at boot) until every
+                # shard can keep a subspace
+                t = self.mirror.table
+                sizes = t.subtree_points()
+                while len(pool) < n_empty:
+                    exp = [r for r in pool if t.child_count[r] > 0]
+                    if not exp:
+                        break
+                    r = max(exp, key=lambda r: int(sizes[r]))
+                    pool.remove(r)
+                    fc, cc = int(t.first_child[r]), int(t.child_count[r])
+                    pool.extend(range(fc, fc + cc))
+            for r in pool:
+                empties = [s for s in range(sdev.m) if not plans[s]]
+                s = (empties[0] if empties else
+                     min(range(sdev.m),
+                         key=lambda s: int(sdev.shards[s].n_points)))
+                plans[s].append(int(r))
+                changed.add(s)
+            for s in range(sdev.m):
+                if plans[s]:
+                    continue
+                donors = [d for d in range(sdev.m) if len(plans[d]) > 1]
+                if donors:
+                    d = max(donors,
+                            key=lambda d: int(sdev.shards[d].n_points))
+                    plans[s].append(plans[d].pop())
+                    changed.update((s, d))
+                else:
+                    # cannot keep m nonempty subspaces: full re-shard
+                    # (the delta-only acceptance counter pins this to 0)
+                    self.sdev = ShardedDeviceTable.from_table(
+                        self.mirror.table, self.stream.points,
+                        self.requested_shards, stats=self.upload_stats,
+                        compressed=self.compressed, device=self.device,
+                    )
+                    self.stats.stream_reshards += 1
+                    return
+        if changed:
+            try:
+                sdev.refresh(sorted(changed))
+            except Exception:
+                self._stream_stale_shards = changed
+                raise
+            self.stats.shard_refreshes += len(changed)
 
     def _k_eff(self, k: int) -> int:
         """k-NN over-fetch for tombstones: each component's top-(k+shadow)
@@ -1078,35 +1298,46 @@ class DeviceQueryServer:
         return max(k, 1 << (k + shadow - 1).bit_length())
 
     def _stream_is_stale(self) -> bool:
-        """Device copy known to be missing just-flushed tier rows (a failed
-        upload): the host stream answers exactly until the next sync
-        converges the device.  An upload that failed with an error that
-        is not an injected fault is raised instead."""
+        """Device copies known to be missing just-flushed tier rows (a
+        failed upload): the host stream answers exactly until the next
+        sync converges the device.  An upload that failed with an error
+        that is not an injected fault is raised instead."""
         if self._stream_device_error is not None:
+            stale = sorted(self._stream_stale_shards) or [0]
             raise RuntimeError(
                 "the device export missed a stream sync; the next insert "
-                "or delete, or repair([0]), uploads it again"
+                f"or delete, or repair({stale}), uploads it again"
             ) from self._stream_device_error
-        return self._stream_device_stale
+        return self._stream_device_stale or bool(self._stream_stale_shards)
 
     def _window_streaming(self, los, his, runner, *,
                           return_certs: bool = False):
-        """Streaming window: device answer + tombstone filter + delta
-        union.  A stale device or a device outage falls back to the
-        authoritative host stream (exact, intact certificates)."""
+        """Streaming window: device fan-out + tombstone filter + delta
+        union.  A stale device or a single-device outage falls back to
+        the authoritative host stream (exact, intact certificates); a
+        sharded outage under ``return_certs`` serves degraded with the
+        protocol's real per-shard certificates."""
         with self.table_lock.read():
             stream = self.stream
             certs = [CompletenessCertificate.intact() for _ in los]
             if self._stream_is_stale():
                 out = stream.window(los, his)
                 return (out, certs) if return_certs else out
-            try:
-                res = runner(0, lambda: window_query_batch_torch(
-                    self.dev, los, his,
-                ))
-            except ShardUnavailable:
-                out = stream.window(los, his)
-                return (out, certs) if return_certs else out
+            if self.sdev is not None:
+                res = window_query_batch_sharded(
+                    self.sdev, los, his, runner=runner,
+                    return_certs=return_certs,
+                )
+                if return_certs:
+                    res, certs = res
+            else:
+                try:
+                    res = runner(0, lambda: window_query_batch_torch(
+                        self.dev, los, his,
+                    ))
+                except ShardUnavailable:
+                    out = stream.window(los, his)
+                    return (out, certs) if return_certs else out
             pend = stream.delta_live_rows()
             if len(pend):
                 p = stream.points[pend]
@@ -1131,16 +1362,26 @@ class DeviceQueryServer:
             if self._stream_is_stale():
                 out = stream.knn(qs, k)
                 return (out, certs) if return_certs else out
-            k_eff = min(self._k_eff(k), int(self.dev.live_points()))
+            n_phys = int(self.sdev.n_points if self.sdev is not None
+                         else self.dev.live_points())
+            k_eff = min(self._k_eff(k), n_phys)
             res = [np.empty(0, dtype=np.int64)] * len(qs)
             if k_eff > 0:
-                try:
-                    res = runner(0, lambda: knn_query_batch_torch(
-                        self.dev, qs, k_eff,
-                    ))
-                except ShardUnavailable:
-                    out = stream.knn(qs, k)
-                    return (out, certs) if return_certs else out
+                if self.sdev is not None:
+                    res = knn_query_batch_sharded(
+                        self.sdev, qs, k_eff, runner=runner,
+                        return_certs=return_certs,
+                    )
+                    if return_certs:
+                        res, certs = res
+                else:
+                    try:
+                        res = runner(0, lambda: knn_query_batch_torch(
+                            self.dev, qs, k_eff,
+                        ))
+                    except ShardUnavailable:
+                        out = stream.knn(qs, k)
+                        return (out, certs) if return_certs else out
             pend = stream.delta_live_rows()
             pts = stream.points
             out = []
@@ -1182,8 +1423,9 @@ class DeviceQueryServer:
         return out
 
     def _after_refinement(self, before_unref: np.ndarray) -> None:  # analysis: caller-holds-write
-        """Push the microbatch's grafts to the device with one incremental
-        delta, then vacuum the host table if grafting bloated it.
+        """Push the microbatch's grafts to the device: incremental delta
+        (single table) or per-changed-shard re-export (sharded), then
+        vacuum the host table if grafting bloated it.
 
         The upload is retried under the ``apply_delta`` fault point (fired
         at entry: an injected upload fault never half-applies, since the
@@ -1201,8 +1443,31 @@ class DeviceQueryServer:
         def upload():
             if self.fault_plan is not None:
                 self.fault_plan.fire("apply_delta")
-            self.dev = self.dev.apply_delta(t, self.points)  # swap
-            self.stats.delta_refreshes += 1
+            if self.sdev is not None:
+                if self.sdev.m < self.requested_shards:
+                    # a boot from a barely refined table (ultimately the
+                    # single-unrefined-root state, where the plan is [[0]])
+                    # cannot cut m subspaces yet; re-plan once the grafts
+                    # grow the tree far enough instead of full-re-exporting
+                    # the one degenerate whole-table "shard" on every graft
+                    sizes = t.subtree_points()
+                    if len(t.shard_plan(
+                        self.requested_shards, sizes
+                    )) > self.sdev.m:
+                        self.sdev = ShardedDeviceTable.from_table(
+                            t, self.points, self.requested_shards,
+                            partial=True, stats=self.upload_stats,
+                            compressed=self.compressed, device=self.device,
+                        )
+                        self.stats.shards = self.sdev.m
+                        self.stats.shard_refreshes += self.sdev.m
+                        return
+                changed = self.sdev.shards_of_rows(grafted)
+                self.sdev.refresh(changed)
+                self.stats.shard_refreshes += len(changed)
+            else:
+                self.dev = self.dev.apply_delta(t, self.points)  # swap
+                self.stats.delta_refreshes += 1
 
         try:
             self.retry.call(
@@ -1215,14 +1480,15 @@ class DeviceQueryServer:
 
     def _maybe_compact(self) -> None:  # analysis: caller-holds-write
         """Vacuum the host table once grafting bloated it, rebasing the
-        device table's row maps through the returned remap.  With a
+        device table's row maps (or the shard plan) through the returned
+        remap.  With a
         journal, the vacuum is itself a journaled op (replay must compact
         at the same point to stay bit-identical) and doubles as the
         snapshot barrier: checkpoint, then truncate the folded journal."""
         t = self.ambi.table
         if t.n_perm > (1.0 + self.compact_slack) * len(self.points):
-            # the compact() row remap and the device rebase must be one
-            # atomic writer section: a concurrent apply_delta swap (or
+            # the compact() row remap and the device/shard rebase must be
+            # one atomic writer section: a concurrent apply_delta swap (or
             # reader capturing row indices) between them would observe a
             # half-rebased slot map.  Callers enter through the adaptive
             # write sections; this pins the invariant for new call sites.
@@ -1235,7 +1501,10 @@ class DeviceQueryServer:
                 except RetryExhausted:
                     return  # not durably logged -> defer the vacuum
             remap = t.compact()
-            self.dev.remap_rows(remap)
+            if self.sdev is not None:
+                self.sdev.remap_source_rows(remap)
+            else:
+                self.dev.remap_rows(remap)
             self._table_version += 1
             self.stats.compactions += 1
             if self.snapshot_path is not None:
@@ -1331,8 +1600,8 @@ class DeviceQueryServer:
         state (grafting is deterministic given the snapshot's rng +
         page-store state, so the table lands bit-identical to the
         uninterrupted server's), then resume serving with the same
-        durability config.  ``device`` and the other keywords go to the
-        new server.  Snapshots and journals of the JAX package's server
+        durability config.  ``device``, ``shards`` and the other keywords
+        go to the new server.  Snapshots and journals of the JAX package's server
         recover here too (same formats).
 
         The fault plane is disarmed for the replay — recovery re-executes

@@ -400,13 +400,19 @@ def test_fault_plans_keep_answers_exact(point, calls):
 
 
 def test_not_ported_options_raise(tmp_path):
-    """Sharded serving is not ported yet; the options the slice ported
-    raise the reference's ``ValueError``s where they do not apply."""
+    """``shards=2`` serves (sharded serving is ported) with the single
+    device's answers; the options the slices ported raise the reference's
+    ``ValueError``s where they do not apply."""
     pts = f32_points(20_000, 2, 21)
     idx = bulk_load(pts, 100, PageStore(100))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceQueryServer.from_index(idx, device=CPU, shards=2)
+    sharded = DeviceQueryServer.from_index(idx, device=CPU, shards=2)
     srv = DeviceQueryServer.from_index(idx, device=CPU)
+    assert sharded.stats.shards == sharded.sdev.m == 2 and sharded.dev is None
+    qs = f32_points(12, 2, 24)
+    for a, b in zip(sharded.window(qs - 0.05, qs + 0.05), srv.window(qs - 0.05, qs + 0.05)):
+        assert np.array_equal(np.sort(a), np.sort(b))
+    for a, b in zip(sharded.knn(qs, 6), srv.knn(qs, 6)):
+        assert np.array_equal(a, b)
     for name in ("insert", "delete", "checkpoint", "from_streaming", "recover"):
         assert hasattr(srv, name), name
     with pytest.raises(ValueError, match="static"):

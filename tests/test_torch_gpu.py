@@ -10,8 +10,9 @@ not at import).  Each kernel is held bit for bit against its plain version
 on the same CUDA tensors, the engine's answers on a ``cuda`` export against
 the same export on the CPU (where every kernel runs as its plain version),
 a ``RetrievalServer`` on the card against the same server on the CPU,
-and a streaming ``DeviceQueryServer`` (with recovery and the frontend) on
-the card against the same server on the CPU and a brute force.
+a streaming ``DeviceQueryServer`` (with recovery and the frontend) and
+sharded servers (static, a dead shard and its repair, streaming) on the
+card against the same server on the CPU and a brute force.
 """
 import numpy as np
 import pytest
@@ -285,6 +286,129 @@ def test_streaming_recovery_and_frontend_on_the_card(cuda, tmp_path):
         else:
             np.testing.assert_array_equal(r.ids, live.knn(r.payload[0][None], 16)[0])
     assert (rec.stats.retries, rec.stats.host_fallbacks) == (0, 0)
+
+
+def _sharded_pair(m, kw=lambda dev: {}):
+    """A sharded server over one FMBI index on the card and on the CPU."""
+    pts = np.random.default_rng(7).random((40_000, 2)).astype(np.float32).astype(np.float64)
+    idx = bulk_load(pts, 250, PageStore(250))
+    servers = [DeviceQueryServer.from_index(idx, shards=m, microbatch=64, device=dev,
+                                            **kw(dev))
+               for dev in (None, "cpu")]
+    assert servers[0].sdev.device.type == "cuda" and servers[0].stats.shards == m
+    return pts, servers
+
+
+MAIN_PATH = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
+
+
+def _brute_f32(pts, lo, hi):
+    """Window ids over the points as the card holds them (f32 compares)."""
+    p, lo, hi = (np.asarray(x, dtype=np.float32) for x in (pts, lo, hi))
+    return np.flatnonzero(((p >= lo) & (p <= hi)).all(axis=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+def test_sharded_server_on_the_card_matches_the_cpu_server(cuda, m):
+    """``DeviceQueryServer(shards=m)`` on the card against the same server
+    on the CPU: equal answers (windows fanned out to the qualified shards,
+    the two-round k-NN), equal counters, the brute force on a sample; the
+    four main-path kernels launched and no retry or host fallback."""
+    pts, (card, cpu) = _sharded_pair(m)
+    rng = np.random.default_rng(8)
+    c = rng.random((200, 2)).astype(np.float32).astype(np.float64)
+    los, his = c - 0.02, c + 0.02
+    launches.reset()
+    got, want = (srv.window(los, his) for srv in (card, cpu))
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+        if i < 16:
+            np.testing.assert_array_equal(np.sort(a), _brute_f32(pts, los[i], his[i]))
+    got, want = (srv.knn(c, 16) for srv in (card, cpu))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    counts = launches.counts()
+    assert all(counts[k] > 0 for k in MAIN_PATH), counts
+    assert card.stats == cpu.stats and card.upload_stats == cpu.upload_stats
+    assert (card.stats.retries, card.stats.host_fallbacks) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+def test_sharded_outage_and_repair_on_the_card(cuda, m):
+    """Shard 1 dead (an injected fault on every dispatch): the degraded
+    answers and certificates on the card equal the CPU server's, and
+    ``repair`` re-exports that one shard on the card."""
+    from repro_torch.serve import FaultPlan, FaultRule, RetryPolicy
+
+    def kw(dev):
+        return dict(fault_plan=FaultPlan([FaultRule("shard_dispatch", rate=1.0,
+                                                    match={"shard": 1})], seed=0),
+                    retry=RetryPolicy(max_attempts=2, sleep=lambda s: None),
+                    breaker_threshold=1, breaker_cooldown_s=1e9)
+
+    pts, (card, cpu) = _sharded_pair(m, kw)
+    rng = np.random.default_rng(9)
+    c = rng.random((64, 2)).astype(np.float32).astype(np.float64)
+    los, his = c - 0.05, c + 0.05
+    (gw, gwc), (ww, wwc) = (srv.window(los, his, return_certs=True) for srv in (card, cpu))
+    (gk, gkc), (wk, wkc) = (srv.knn(c, 16, return_certs=True) for srv in (card, cpu))
+    for a, b in zip(gw + gk, ww + wk):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+    for x, y in zip(gwc + gkc, wwc + wkc):
+        assert (x.complete, x.certified_exact, x.missing_shards) == (
+            y.complete, y.certified_exact, y.missing_shards)
+    assert any(not x.complete for x in gwc) and card.breakers[1].state == "open"
+    assert all(x.missing_shards in ((), (1,)) for x in gwc + gkc)
+    exports = card.upload_stats["full_exports"]
+    for srv in (card, cpu):
+        srv.fault_plan.disarm()
+        assert srv.repair() == [1]
+    assert card.upload_stats["full_exports"] == exports + 1
+    (gw, gwc), (ww, _) = (srv.window(los, his, return_certs=True) for srv in (card, cpu))
+    assert all(x.complete for x in gwc)
+    for i, (a, b) in enumerate(zip(gw, ww)):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+        np.testing.assert_array_equal(np.sort(a), _brute_f32(pts, los[i], his[i]))
+    assert card.stats == cpu.stats and card.upload_stats == cpu.upload_stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4])
+def test_sharded_streaming_sync_on_the_card(cuda, m):
+    """A sharded streaming server on the card against the same server on
+    the CPU and a brute force over the live rows, through syncs that
+    re-export changed shards (never a full re-shard)."""
+    rng = np.random.default_rng(10)
+    pts = rng.random((20_000, 2)).astype(np.float32).astype(np.float64)
+    kw = dict(delta_threshold=1024, delta_index_every=256, size_ratio=4)
+    card, cpu = (DeviceQueryServer.from_streaming(StreamingIndex(pts, **kw), shards=m,
+                                                  microbatch=64, device=dev)
+                 for dev in (None, "cpu"))
+    assert card.sdev.device.type == "cuda"
+    launches.reset()
+    for step in range(4):
+        ins = rng.random((1024, 2)).astype(np.float32).astype(np.float64)
+        ids = [srv.insert(ins) for srv in (card, cpu)]
+        dels = rng.choice(ids[0], 16, replace=False)
+        assert card.delete(dels) == cpu.delete(dels)
+        assert not card._stream_is_stale()
+    c = rng.random((64, 2)).astype(np.float32).astype(np.float64)
+    los, his = c - 0.01, c + 0.01
+    got, want = (srv.window(los, his) for srv in (card, cpu))
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, _live_brute(card.stream, los[i], his[i]))
+    got, want = (srv.knn(c, 16) for srv in (card, cpu))
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, _live_knn(card.stream, c[i], 16))
+    counts = launches.counts()
+    assert all(counts[k] > 0 for k in MAIN_PATH), counts
+    assert card.stats == cpu.stats and card.upload_stats == cpu.upload_stats
+    assert card.stats.shard_refreshes > 0 and card.stats.stream_reshards == 0
+    assert (card.stats.retries, card.stats.host_fallbacks) == (0, 0)
 
 
 @pytest.mark.gpu

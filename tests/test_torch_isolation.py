@@ -15,7 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import AMBI, DeviceTable, PageStore, StreamingIndex, bulk_load
+from repro_torch.core import (
+    AMBI,
+    DeviceTable,
+    PageStore,
+    ShardedDeviceTable,
+    StreamingIndex,
+    bulk_load,
+)
 from repro_torch.core import grid_index as GI
 from repro_torch.core import queries_torch as QT
 from repro_torch.kernels import knn_topk, launches, ops, partition_assign, window_filter
@@ -67,7 +74,7 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.distributed_torch, repro_torch.serve.resilience, "
         "repro_torch.serve.faults, repro_torch.analysis.runtime, "
         "repro_torch.core.streaming, repro_torch.serve.journal, "
-        "repro_torch.serve.frontend\n"
+        "repro_torch.serve.frontend, repro_torch.core.distributed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -105,6 +112,28 @@ def test_entry_points_need_cuda_or_cpu(monkeypatch):
     assert DeviceQueryServer.from_index(idx, device="cpu").dev.device.type == "cpu"
     srv = DeviceQueryServer.from_streaming(StreamingIndex(idx.points), device="cpu")
     assert srv.dev.device.type == "cpu"
+
+
+def test_sharded_table_needs_cuda_or_cpu(monkeypatch):
+    """The sharded table and a sharded server export to the card unless
+    the caller passes ``device="cpu"``; on the CPU no kernel launches."""
+    idx = _index()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedDeviceTable.from_index(idx, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.from_index(idx, shards=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryServer.from_streaming(StreamingIndex(idx.points), shards=2)
+    sdev = ShardedDeviceTable.from_index(idx, 2, device="cpu")
+    assert sdev.m == 2 and all(s.device.type == "cpu" for s in sdev.shards)
+    launches.reset()
+    srv = DeviceQueryServer.from_index(idx, shards=2, device="cpu")
+    c = np.random.default_rng(3).random((8, 2))
+    srv.window(c - 0.1, c + 0.1)
+    srv.knn(c, 4)
+    assert srv.sdev.device.type == "cpu"
+    assert launches.counts() == dict.fromkeys(launches.KERNELS, 0)
 
 
 def test_grid_index_and_server_need_cuda_or_cpu(monkeypatch, tmp_path):
