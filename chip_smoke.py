@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main, serving, streaming, sharded,
+"""Drive the PyTorch port's main, serving, streaming, sharded, collective,
 first-generation and retrieval paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
@@ -22,9 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
    k distinct dataset rows at +inf on both exports and both engines.
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-   Phases 3a, 3s, 3h, 3u, 3c and 5 at d = 2 run right after phase 3, and 4u,
-   4c, the d = 5 retrieval phase right after phase 4, on their exports,
-   points and batches.
+   Phases 3a, 3s, 3h, 3c, 3u, 3w and 5 at d = 2 run right after phase 3,
+   and 4u, 4w, the d = 5 retrieval phase right after phase 4, on their
+   exports, points and batches.
 3a. Serving (``DeviceQueryServer``, microbatches of 64).  Static: the
    server over phase 3's index answers its 1024 windows and 1024 k-NN
    queries; every window equals the fused batch's id set and every k-NN
@@ -104,6 +104,33 @@ Phases (any failure exits non-zero; nothing is caught):
    the counts before and reads them after (the four main-path kernels
    must have launched) and asserts no retry, host fallback or degraded
    answer where no fault plan is armed.
+3c. The collective build and rounds over a ``torch.distributed`` process
+   group, right after 3h, on phase 3's points as f32.  Four gloo ranks
+   (``mesh.run_ranks``) share ``cuda:0``: NCCL puts no two ranks on one
+   card, so each collective is staged through host tensors while the
+   compute stays on the card.  The points reach the ranks through an
+   ``.npy`` each memory-maps.  ``shard_build`` at ``levels_local`` = 14
+   (about 305 slots per leaf): kept plus dropped rows make n, no row id
+   twice, all in range; ``shard_knn`` over phase 3's 1024 queries: every
+   rank the same answer, every certified one equal to a brute force over
+   the kept rows (plain PyTorch on the card); ``knn_batch_shard_map`` over
+   the first 64 queries on ``ShardedDeviceTable.from_index(index,
+   4).stacked()``: distances equal to phase 3's fused batch and the brute
+   force, ids equal except among ties; ``window_count_batch_shard_map``
+   over the 1024 windows: equal to phase 3's counts.  The built shards go
+   through ``shard_build_tables`` and ``from_tables`` behind the sharded
+   protocols: every window equals the kept rows of the fused answer (the
+   first 32 a brute force over the kept rows) and every k-NN answer the
+   brute force; ``box_hits`` and ``pair_window_ids`` must have launched
+   for the windows, ``leaf_mindist`` and ``pair_dist2`` for the k-NN, and
+   the router's pruning is counted as in 3h.  Then an NCCL world of one
+   over the first 1M points (the m = 1 branch; a transport check, not the
+   full-width path).  Each rank
+   logs its build spans (sample gather, route, ``all_to_all`` with the
+   bytes staged through the host, local build), its round times and its
+   launch counts; ``partition_assign``, ``leaf_mindist``,
+   ``gathered_dist2`` and ``window_count_tiles`` must have launched on
+   every rank of the four.  A rank's failure fails the run, naming it.
 3u. First-generation engine (``fused=False``) on phase 3's two exports,
    the same windows and k-NN queries, three runs each, counts zeroed
    before and read after: ``box_hits``, ``window_mask_gathered``,
@@ -111,10 +138,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``pair_window_ids`` and ``pair_dist2`` must not.  Every window must
    equal the fused batch's id set and every k-NN distance sequence the
    fused batch's, on each export.
-3c. ``ops.window_count`` over all of phase 3's points for its 1024
+3w. ``ops.window_count`` over all of phase 3's points for its 1024
    windows (counts zeroed before, read after; ``window_count_tiles`` must
    have launched): every count must equal the fused window batch's size.
-5. Retrieval at d = 2 (run right after phase 3c, while its points and
+5. Retrieval at d = 2 (run right after phase 3w, while its points and
    index are in memory): ``RetrievalServer(points, levels=15)`` builds the
    balanced grid index on the card over phase 3's points (f32), then runs,
    each cold and warm: ``knn`` over phase 3's 1024 queries (k = 16, 16
@@ -132,7 +159,7 @@ Phases (any failure exits non-zero; nothing is caught):
 7. Kernels: each kernel is called on the inputs its path gave it (the
    largest call per kernel and bound type for ``box_hits``,
    ``window_mask_gathered`` and the retrieval kernels, the first for the
-   others, recorded during phases 3, 3u, 3c and 5; ``window_count_tiles``
+   others, recorded during phases 3, 3u, 3w and 5; ``window_count_tiles``
    at all 1024 windows over all points; ``partition_assign`` also at its
    smallest call, one adaptive batch of 64 queries, which takes the
    small-n kernel where all points take the shared-table one; the other
@@ -150,8 +177,11 @@ Phases (any failure exits non-zero; nothing is caught):
    its last k-NN round at ``k_eff`` = 512 among them) are held the same
    way, untimed, and so are phase 3h's (``<dtype>:sharded``: the
    shards' ragged query counts, the one-row root level of a partial
-   shard, the refreshed shards).  Each phase also counts its launches by
-   shape (``launch_shapes``).
+   shard, the refreshed shards), rank 0's calls of phase 3c
+   (``<dtype>:collective``, saved by the rank with ``torch.save``) and
+   its protocols' calls on the built shards
+   (``<dtype>:collective_tables``: first, smallest and last).  Each phase
+   also counts its launches by shape (``launch_shapes``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
@@ -170,6 +200,7 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -1247,6 +1278,30 @@ class ShardProbes:
         return call
 
 
+def probe_stats(probes, sdev, los, his, qs, runs) -> dict:
+    """The router's pruning over the last of ``runs`` equal window and
+    k-NN batches that ``probes`` counted on ``sdev``: window dispatches
+    per batch, shards per window, windows per shard, round-1 home shards,
+    and the round-2 (query, shard) pairs in all and per shard."""
+    from repro_torch.core.geometry import boxes_intersect_windows, boxes_mindist_sq
+
+    hit = boxes_intersect_windows(sdev.shard_lo, sdev.shard_hi, los.astype(np.float32),
+                                  his.astype(np.float32))
+    minds = boxes_mindist_sq(sdev.shard_lo, sdev.shard_hi, qs.astype(np.float32))
+    calls = probes.calls["knn"]
+    kcalls = calls[len(calls) // runs * (runs - 1):]
+    homes = len(np.unique(np.argmin(minds, axis=1)))
+    return dict(
+        window_dispatches=len(probes.calls["window"]) // runs,
+        shards_per_window=float(hit.sum(axis=1).mean()),
+        windows_per_shard=hit.sum(axis=0).tolist(),
+        round1_home_shards=homes,
+        knn_dispatches=len(kcalls),
+        round2_pairs=int(sum(c for _, c in kcalls[homes:])),
+        round2_queries_per_shard=[int(sum(c for s, c in kcalls[homes:] if s == j))
+                                  for j in range(sdev.m)])
+
+
 def timed_method(cls, name, torch, sink):
     """Wrap the method (or classmethod) ``cls.name`` so that each call's
     wall time, ending in ``torch.cuda.synchronize()``, is appended to
@@ -1346,33 +1401,20 @@ def sharded_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches, device=
                     kres, rec["knn"] = timed_runs(
                         lambda: rt.knn_query_batch_sharded(sdev, qs, k, fused=True),
                         torch, launches, runs=3)
-                n_wcalls = len(probes.calls["window"])
                 counts = launches.counts()
                 main_path_launched(f"{tag} m={m}", counts)
                 same_as_fused(f"{tag} m={m}", pts32, qs, inputs, wres, kres,
                               f"protocols at m={m}")
-                hit = boxes_intersect_windows(sdev.shard_lo, sdev.shard_hi,
-                                              los.astype(np.float32), his.astype(np.float32))
-                minds = boxes_mindist_sq(sdev.shard_lo, sdev.shard_hi, qs.astype(np.float32))
-                kcalls = probes.calls["knn"][len(probes.calls["knn"]) // 3 * 2:]
-                homes = len(np.unique(np.argmin(minds, axis=1)))
-                rec.update(
-                    launches=counts,
-                    window_dispatches=n_wcalls // 3,
-                    shards_per_window=float(hit.sum(axis=1).mean()),
-                    windows_per_shard=hit.sum(axis=0).tolist(),
-                    round1_home_shards=homes,
-                    knn_dispatches=len(kcalls),
-                    round2_pairs=int(sum(c for _, c in kcalls[homes:])),
-                    round2_queries_per_shard=[int(sum(c for s, c in kcalls[homes:] if s == j))
-                                              for j in range(sdev.m)])
+                rec.update(launches=counts,
+                           **probe_stats(probes, sdev, los, his, qs, runs=3))
                 out[f"static_m{m}"] = rec
                 log(f"[{tag}] m={m}: export {rec['export_s']:.3f} s "
                     f"({rec['points_per_shard']} points); windows {rec['window']}; k-NN "
                     f"{rec['knn']}; {rec['shards_per_window']:.3f} shards per window, "
-                    f"{homes} round-1 home shards, {rec['round2_pairs']} round-2 "
-                    f"(query, shard) pairs {rec['round2_queries_per_shard']}; every answer "
-                    f"equals the fused batch's; {smi}")
+                    f"{rec['round1_home_shards']} round-1 home shards, "
+                    f"{rec['round2_pairs']} round-2 (query, shard) pairs "
+                    f"{rec['round2_queries_per_shard']}; every answer equals the fused "
+                    f"batch's; {smi}")
                 del sdev, wres, kres
             torch.cuda.empty_cache()
 
@@ -1658,6 +1700,314 @@ def sharded_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches, device=
 
 
 # --------------------------------------------------------------------------
+# phase 3c: the collective build and rounds over a process group
+# --------------------------------------------------------------------------
+# the kernels the ranks launch (partition_assign only where m > 1: it
+# routes points to their owner shards)
+COLLECTIVE = ("partition_assign", "leaf_mindist", "gathered_dist2", "window_count_tiles")
+COLLECTIVE_RANKS = 4
+COLLECTIVE_LEVELS = 14        # 10M points over 4 ranks: about 305 slots per leaf
+COLLECTIVE_BATCH = 64         # knn_batch_shard_map scans every leaf: a small batch
+ONE_RANK_N = 1_000_000        # the NCCL world of one: a transport check
+ONE_RANK_LEVELS = 12
+STACKED = ("leaf_pts", "leaf_ids", "leaf_counts", "leaf_lo", "leaf_hi")
+RANK_TIMEOUT = 600
+
+
+def collective_rank(group, tmp, levels, k, record):
+    """One rank of phase 3c: ``shard_build`` over its row slice of
+    ``points.npy`` (memory-mapped), ``shard_knn`` over ``qs.npy``, and
+    both collective rounds over the stacked layout saved beside it.  Rank
+    0 records one call per kernel (``torch.save`` into ``tmp``) when
+    ``record``.  Returns host data only."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import distributed_torch as DT
+    from repro_torch.kernels import launches, ops
+
+    m, r = group.size, group.rank
+    pts = np.load(f"{tmp}/points.npy", mmap_mode="r")
+    per = len(pts) // m
+    stacked = {key: np.load(f"{tmp}/stacked_{key}.npy", mmap_mode="r") for key in STACKED}
+    qs, los, his = (np.load(f"{tmp}/{name}.npy") for name in ("qs", "los", "his"))
+    recorder = (Recorder(ops, COLLECTIVE, suffix=":collective") if record and r == 0
+                else contextlib.nullcontext())
+    launches.reset()
+    with recorder:
+        local = D.shard_build(np.array(pts[r * per:(r + 1) * per]), levels, group)
+        staged_build = group.staged_bytes
+        with group.timed("shard_knn"):
+            knn = D.shard_knn(local.index, qs, k, group)
+        with group.timed("knn_batch"):
+            batch = DT.knn_batch_shard_map(stacked, qs[:COLLECTIVE_BATCH], k, group)
+        with group.timed("window_count"):
+            counts = DT.window_count_batch_shard_map(stacked, los, his, group)
+    if record and r == 0:
+        torch.save(recorder.calls, f"{tmp}/calls.pt")
+    return {"arrays": local.arrays(), "n_mine": local.n_mine, "n_dropped": local.n_dropped,
+            "seconds": dict(group.seconds), "staged_build": staged_build,
+            "staged_bytes": group.staged_bytes, "launches": launches.counts(),
+            "knn": tuple(t.cpu().numpy() for t in knn), "knn_batch": batch,
+            "window_count": counts}
+
+
+def brute_knn_top(pts_dev, keep, qs32, k, torch, chunk=8):
+    """The ``k + 1`` smallest f32 squared distances per query over the
+    rows where ``keep`` holds, and their rows: plain PyTorch on the card,
+    summed per dimension in the kernels' order, ``chunk`` queries at a
+    time."""
+    q = torch.from_numpy(qs32).to(pts_dev.device)
+    drop = ~torch.from_numpy(keep).to(pts_dev.device)
+    dist, rows = [], []
+    for a in range(0, len(q), chunk):
+        acc = torch.zeros((len(q[a:a + chunk]), len(pts_dev)), device=pts_dev.device)
+        for j in range(pts_dev.shape[1]):
+            diff = pts_dev[None, :, j] - q[a:a + chunk, j, None]
+            acc = acc + diff * diff
+        acc.masked_fill_(drop[None], float("inf"))
+        v, i = torch.topk(acc, k + 1, dim=1, largest=False)
+        dist.append(v.cpu().numpy())
+        rows.append(i.cpu().numpy())
+    return np.concatenate(dist), np.concatenate(rows)
+
+
+def check_top(tag, what, pts32, q, d2, ids, want_d, want_i, k) -> None:
+    """One k-NN answer against the brute force's ``k + 1`` best: equal
+    distance sequence, distances those of the ids, equal ids where the
+    k-th distance is not tied."""
+    if (not np.array_equal(d2, want_d[:k])
+            or not np.array_equal(brute_d2(pts32[ids], q), d2)
+            or (want_d[k - 1] < want_d[k] and set(ids.tolist()) != set(want_i[:k].tolist()))):
+        raise AssertionError(f"[{tag}] {what}: {ids} at {d2}, brute force {want_i[:k]} at "
+                             f"{want_d[:k]}")
+
+
+def run_collective(tag, pts32, stacked, qs32, los32, his32, m, levels, k, backend, device,
+                   record, torch):
+    """Save the inputs into a temporary directory, run ``collective_rank``
+    on ``m`` ranks of ``backend`` (every rank on ``device``), check that
+    every rank holds the same answers and log each rank's spans, staged
+    bytes and launches.  Returns the rank results, the recorded calls and
+    the run's wall seconds."""
+    from repro_torch.core import mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_collective_") as tmp:
+        np.save(f"{tmp}/points.npy", pts32)
+        for key in STACKED:
+            np.save(f"{tmp}/stacked_{key}.npy", stacked[key])
+        for name, a in (("qs", qs32), ("los", los32), ("his", his32)):
+            np.save(f"{tmp}/{name}.npy", a)
+        t0 = time.perf_counter()
+        ranks = mesh.run_ranks(collective_rank, m, backend=backend, devices=[device] * m,
+                               args=(tmp, levels, k, record), timeout=RANK_TIMEOUT)
+        wall = time.perf_counter() - t0
+        calls = (torch.load(f"{tmp}/calls.pt", map_location=device, weights_only=False)
+                 if record else {})
+    for r, res in enumerate(ranks[1:], 1):
+        for key in ("knn", "knn_batch", "window_count"):
+            a, b = res[key], ranks[0][key]
+            if isinstance(a, np.ndarray):
+                a, b = (a,), (b,)
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"[{tag}] rank {r}'s {key} differs from rank 0's")
+    for r, res in enumerate(ranks):
+        s = res["seconds"]
+        log(f"[{tag}] {backend} rank {r}/{m}: sample gather {s['sample_gather']:.4f} s, "
+            f"route {s['route']:.4f} s, all_to_all {s['all_to_all']:.4f} s "
+            f"({res['staged_build']} B staged through the host), local build "
+            f"{s['build']:.4f} s; rounds: shard_knn {s['shard_knn'] * 1e3:.2f} ms, "
+            f"knn_batch_shard_map {s['knn_batch'] * 1e3:.2f} ms, "
+            f"window_count_batch_shard_map {s['window_count'] * 1e3:.2f} ms; "
+            f"{res['staged_bytes']} B staged in all; n_mine {res['n_mine']}, dropped "
+            f"{res['n_dropped']}; launches {res['launches']}")
+    return ranks, calls, wall
+
+
+def check_collective(tag, pts32, ranks, qs32, k, want_counts, torch, device, launched):
+    """The checks both worlds share: every row kept once or dropped, the
+    kernels of ``launched`` launched on every rank, certified
+    ``shard_knn`` answers and every ``knn_batch_shard_map`` answer equal
+    to a brute force over the kept rows, and the window counts equal
+    ``want_counts``.  Returns the stacked build, the kept-row mask and the
+    brute force's top distances and rows."""
+    from repro_torch.core import distributed as D
+
+    n = len(pts32)
+    shard_out = D.stack_shards([r["arrays"] for r in ranks])
+    rows = shard_out[1].ravel()
+    rows = rows[rows >= 0]
+    n_mine = sum(r["n_mine"] for r in ranks)
+    dropped = sum(r["n_dropped"] for r in ranks)
+    if (n_mine + dropped != n or len(rows) != n_mine or len(np.unique(rows)) != len(rows)
+            or rows.min() < 0 or rows.max() >= n):
+        raise AssertionError(f"[{tag}] rows lost or duplicated: n_mine {n_mine} + dropped "
+                             f"{dropped} of {n}, {len(rows)} row ids")
+    for r, res in enumerate(ranks):
+        missing = [kk for kk in launched if res["launches"][kk] == 0]
+        if missing:
+            raise AssertionError(f"[{tag}] rank {r} did not launch {missing}")
+    keep = np.zeros(n, dtype=bool)
+    keep[rows] = True
+    pts_dev = torch.from_numpy(pts32).to(device)
+    want_d, want_i = brute_knn_top(pts_dev, keep, qs32, k, torch)
+    d2, sel, _, exact = ranks[0]["knn"]
+    for i in np.flatnonzero(exact):
+        check_top(tag, f"shard_knn query {i}", pts32, qs32[i], d2[i], sel[i], want_d[i],
+                  want_i[i], k)
+    if keep.all():
+        all_d, all_i = want_d, want_i
+    else:
+        all_d, all_i = brute_knn_top(pts_dev, np.ones(n, dtype=bool), qs32[:COLLECTIVE_BATCH],
+                                     k, torch)
+    b_d2, b_ids = ranks[0]["knn_batch"]
+    for i in range(COLLECTIVE_BATCH):
+        check_top(tag, f"knn_batch_shard_map query {i}", pts32, qs32[i], b_d2[i], b_ids[i],
+                  all_d[i], all_i[i], k)
+    counts = ranks[0]["window_count"]
+    if counts.dtype != np.int32 or not np.array_equal(counts, want_counts):
+        raise AssertionError(f"[{tag}] window_count_batch_shard_map differs at "
+                             f"{np.flatnonzero(counts != want_counts)[:5]}")
+    log(f"[{tag}] {n_mine} rows kept once, {dropped} dropped at the capacity; "
+        f"{int(exact.sum())} of {len(exact)} shard_knn answers certified, each equal to the "
+        f"brute force over the kept rows; {COLLECTIVE_BATCH} knn_batch_shard_map answers "
+        f"equal the brute force; {len(counts)} window counts equal")
+    del pts_dev
+    return shard_out, keep, want_d, want_i
+
+
+def collective_path(tag, pts, inputs, k, torch, rt, launches, device="cuda:0",
+                    levels=COLLECTIVE_LEVELS,
+                    one_n=ONE_RANK_N, one_levels=ONE_RANK_LEVELS, one_backend="nccl"):
+    """Phase 3c: the collective build and rounds on phase 3's points (f32).
+
+    Four gloo ranks on ``device`` (the card: NCCL puts no two ranks on
+    one GPU, so gloo runs the collectives through host tensors and the
+    compute stays on the card): ``shard_build`` at ``levels``,
+    ``shard_knn`` over phase 3's 1024 queries, ``knn_batch_shard_map``
+    over its first ``COLLECTIVE_BATCH`` on ``ShardedDeviceTable.from_index(index,
+    4).stacked()`` and ``window_count_batch_shard_map`` over its 1024
+    windows; then the built shards through ``shard_build_tables`` and
+    ``from_tables`` behind the sharded protocols.  Then a world of one on
+    ``one_backend`` (NCCL on the card) over the first ``one_n`` points:
+    the transport check of the m = 1 branch, not the full-width path.
+    The protocols' calls are recorded under ``<dtype>:collective_tables``
+    (first, smallest and last), the router's pruning counted as in 3h.
+    Returns the measurements, rank 0's recorded kernel calls and the
+    protocols'."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import distributed_torch as DT
+    from repro_torch.kernels import ops
+
+    pts32 = np.ascontiguousarray(pts, dtype=np.float32)
+    qs32 = inputs["qs"].astype(np.float32)
+    los32, his32 = inputs["los"].astype(np.float32), inputs["his"].astype(np.float32)
+    t_start = time.perf_counter()
+    m = COLLECTIVE_RANKS
+    out = {"ranks": m, "levels": levels}
+    # on the CPU (a rehearsal) every kernel runs as its plain version
+    on_card = torch.device(device).type == "cuda"
+    launched = COLLECTIVE if on_card else ()
+    t0 = time.perf_counter()
+    stacked = rt.ShardedDeviceTable.from_index(inputs["index"], m, device=device).stacked()
+    out["stacked_s"] = time.perf_counter() - t0
+    ranks, calls, out["run_s"] = run_collective(
+        tag, pts32, stacked, qs32, los32, his32, m, levels, k, "gloo", device, True,
+        torch)
+    del stacked
+    out["per_rank"] = [{kk: res[kk] for kk in ("seconds", "staged_build", "staged_bytes",
+                                                "launches", "n_mine", "n_dropped")}
+                       for res in ranks]
+    if on_card and not all(res["staged_bytes"] > 0 for res in ranks):
+        raise AssertionError(f"[{tag}] a gloo rank on {device} staged nothing")
+    shard_out, keep, want_d, want_i = check_collective(
+        tag, pts32, ranks, qs32, k, inputs["window_counts"], torch, device, launched)
+    b_d2, b_ids = ranks[0]["knn_batch"]
+    fused_ids, fused_d2 = inputs["batches"][("knn", "f32")]
+    for i in range(COLLECTIVE_BATCH):
+        below = b_d2[i] < b_d2[i][-1]
+        if (not np.array_equal(b_d2[i], fused_d2[i])
+                or set(b_ids[i][below].tolist()) != set(fused_ids[i][below].tolist())):
+            raise AssertionError(f"[{tag}] knn_batch_shard_map query {i} differs from "
+                                 f"phase 3's fused batch")
+    del ranks
+    # the built shards behind the sharded protocols
+    t0 = time.perf_counter()
+    tables = D.shard_build_tables(shard_out, levels)
+    out["tables_s"] = time.perf_counter() - t0
+    live = 0
+    for t in tables:
+        t.check_invariants()
+        live += int(t.leaf_count[t.leaf_rows()].sum())
+    if live != int(keep.sum()):
+        raise AssertionError(f"[{tag}] tables hold {live} rows, the build kept {keep.sum()}")
+    t0 = time.perf_counter()
+    sdev = rt.ShardedDeviceTable.from_tables(tables, pts32, device=device)
+    torch.cuda.synchronize()
+    out["from_tables_s"] = time.perf_counter() - t0
+    recorder = Recorder(ops, MAIN_PATH, suffix=":collective_tables", last=True)
+    probes = ShardProbes(DT, lambda: sdev)
+    with recorder, probes:
+        wins, out["windows"] = timed_runs(
+            lambda: rt.window_query_batch_sharded(sdev, los32, his32), torch, launches)
+        knns, out["knn"] = timed_runs(lambda: rt.knn_query_batch_sharded(sdev, qs32, k),
+                                      torch, launches)
+    for kind, names in (("windows", ("box_hits", "pair_window_ids")),
+                        ("knn", ("leaf_mindist", "pair_dist2"))):
+        missing = [kk for kk in names if not out[kind]["launches"].get(kk)]
+        if missing:
+            raise AssertionError(f"[{tag}] from_tables {kind}: kernels not launched: "
+                                 f"{missing}")
+    calls.update(recorder.calls)
+    out.update(leaves_per_shard=[s.n_leaves for s in sdev.shards],
+               leaf_size=[s.leaf_size for s in sdev.shards],
+               **probe_stats(probes, sdev, los32, his32, qs32, runs=2))
+    kept_rows = np.flatnonzero(keep)
+    fused_w = inputs["batches"][("window", "f32")]
+    for i, (got, want) in enumerate(zip(wins, fused_w)):
+        if not np.array_equal(np.sort(got), np.sort(want[keep[want]])):
+            raise AssertionError(f"[{tag}] from_tables window {i} differs from the kept rows "
+                                 f"of the fused answer")
+    sorted_kept = SortedWindows(pts32[kept_rows])
+    for i in range(32):
+        if not np.array_equal(np.sort(wins[i]), kept_rows[sorted_kept(los32[i], his32[i])]):
+            raise AssertionError(f"[{tag}] from_tables window {i} differs from brute force")
+    for i, ids in enumerate(knns):
+        check_top(tag, f"from_tables k-NN query {i}", pts32, qs32[i],
+                  brute_d2(pts32[ids], qs32[i]), ids, want_d[i], want_i[i], k)
+    log(f"[{tag}] shard_build_tables {out['tables_s']:.3f} s, from_tables "
+        f"{out['from_tables_s']:.3f} s ({out['leaves_per_shard']} leaves of "
+        f"{out['leaf_size']} slots); windows {out['windows']}; k-NN {out['knn']}; "
+        f"{out['shards_per_window']:.3f} shards per window, {out['round1_home_shards']} "
+        f"round-1 home shards, {out['round2_pairs']} round-2 (query, shard) pairs "
+        f"{out['round2_queries_per_shard']}; {len(wins)} windows and {len(knns)} k-NN "
+        f"queries through the protocols equal the brute force over the {live} kept rows")
+    del sdev, tables, shard_out
+    # the world of one: the m = 1 branch and the transport of one_backend
+    sub = pts32[:one_n]
+    idx1 = rt.bulk_load(sub.astype(np.float64), 250, rt.PageStore(250))
+    stacked1 = rt.ShardedDeviceTable.from_index(idx1, 1, device=device).stacked()
+    sorted_sub = SortedWindows(sub)
+    counts1 = np.array([len(sorted_sub(lo, hi)) for lo, hi in zip(los32, his32)],
+                       dtype=np.int32)
+    ranks1, _, out["one_run_s"] = run_collective(
+        f"{tag} {one_backend} world of 1 (transport check)", sub, stacked1, qs32, los32,
+        his32, 1, one_levels, k, one_backend, device, False, torch)
+    if one_backend == "nccl" and ranks1[0]["staged_bytes"]:
+        raise AssertionError(f"[{tag}] the NCCL rank staged through the host")
+    check_collective(f"{tag} {one_backend} world of 1", sub, ranks1, qs32, k, counts1,
+                     torch, device,
+                     tuple(kk for kk in launched if kk != "partition_assign"))
+    out["one_rank"] = {"backend": one_backend, "n": one_n, "levels": one_levels,
+                       **{kk: ranks1[0][kk] for kk in ("seconds", "staged_bytes",
+                                                       "launches")}}
+    out["total_s"] = time.perf_counter() - t_start
+    log(f"[{tag}] {one_backend} world of 1 over {one_n} points: a transport check of the "
+        f"m = 1 branch, not the full-width path; {out['one_rank']}; phase 3c "
+        f"{out['total_s']:.1f} s")
+    return out, calls
+
+
+# --------------------------------------------------------------------------
 # the retrieval path (balanced grid index + RetrievalServer)
 # --------------------------------------------------------------------------
 def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
@@ -1910,7 +2260,13 @@ def bitwise_equal(a, b, torch) -> bool:
 
 
 def max_abs_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    """Largest |a - b|; equal entries (equal infinities, NaN against NaN)
+    count 0."""
+    if not a.numel():
+        return 0.0
+    a, b = a.double(), b.double()
+    same = (a == b) | (a.isnan() & b.isnan())
+    return float((a - b).abs().masked_fill(same, 0.0).max())
 
 
 def time_ms(fn, reps, torch) -> float:
@@ -2124,6 +2480,8 @@ def main(argv=None) -> int:
     log(f"insert rate: {results['sharded_d2']['streaming']['points_per_s']:.1f} points/s "
         f"sharded (phase 3h), {results['stream_d2']['points_per_s']:.1f} on one device "
         f"(phase 3s)")
+    results["collective_d2"], ccalls2 = collective_path("collective d=2", pts, inputs, 16,
+                                                        torch, rt, launches)
     results["unfused_d2"], ucalls2 = unfused_path("d=2", inputs, 16, torch, rt, launches,
                                                   profile=args.profile)
     results["window_count_d2"], wcalls2 = window_count_path("d=2", pts, inputs, torch,
@@ -2147,10 +2505,10 @@ def main(argv=None) -> int:
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
     k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
-    # phase 3a's, 3s's and 3h's calls (64-query microbatches, the partial
-    # export, the streaming mirror's export, the shards' ragged batches),
-    # held bit for bit but not timed
-    ks = kernel_phase({**scalls2, **stcalls2, **shcalls2}, torch, timed=False)
+    # phase 3a's, 3s's, 3h's and 3c's calls (64-query microbatches, the
+    # partial export, the streaming mirror's export, the shards' ragged
+    # batches, rank 0's calls in phase 3c), held bit for bit but not timed
+    ks = kernel_phase({**scalls2, **stcalls2, **shcalls2, **ccalls2}, torch, timed=False)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

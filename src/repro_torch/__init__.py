@@ -10,7 +10,9 @@ uploaded as deltas) or streaming over a live ``StreamingIndex``
 journal, snapshot barriers and recovery, behind the async ``Frontend``;
 sharded serving (``ShardedDeviceTable``: m per-shard exports behind a
 router, windows fanned out to the qualified shards, the two-round
-certified k-NN protocol) in each of those modes;
+certified k-NN protocol) in each of those modes; the collective build
+and rounds of the paper's Section 5 on a ``torch.distributed`` process
+group, one rank per shard (``core.mesh``, ``core.distributed``);
 the paper's NumPy engine and oracles; the
 brute-force count ``kernels.ops.window_count``; and the retrieval path:
 the balanced ``GridIndex`` built on the device, its routing, window

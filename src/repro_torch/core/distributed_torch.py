@@ -29,21 +29,30 @@ same protocol: its one device is shard 0.
 
 Router arithmetic runs in float32, the dtype the per-shard engine tests
 leaf boxes in, so the routed visit set is a superset of the leaves the
-single-table engine scans.  The collective formulation over a process
-group (``knn_batch_shard_map``, ``window_count_batch_shard_map``) is not
-ported yet; :meth:`ShardedDeviceTable.stacked` lays out its input.
+single-table engine scans.
+
+The collective formulation (``knn_batch_shard_map``,
+``window_count_batch_shard_map``) runs on a ``torch.distributed`` process
+group with one rank per shard (``mesh.py``; the reference's ``shard_map``
+over a device mesh), over the layout :meth:`ShardedDeviceTable.stacked`
+gives.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..kernels import ops
+from .distributed import gather_topk_merge
 from .geometry import boxes_intersect_windows, boxes_mindist_sq
+from .mesh import all_reduce_sum
 from .nodetable import NodeTable
 from .queries_torch import (
     BIG,
     DeviceTable,
+    _knn_core,
     knn_query_batch_torch,
     resolve_device,
     window_query_batch_torch,
@@ -520,3 +529,91 @@ def knn_query_batch_sharded(
         miss = [int(s) for s in down if not (minds[qi, s] > kth)]
         certs.append(CompletenessCertificate.degraded(sdev, miss, exact=True))
     return out, certs
+
+
+# --------------------------------------------------------------------------
+# collective rounds over a process group (one rank per shard)
+# --------------------------------------------------------------------------
+def _check_group(stacked: dict, group) -> np.ndarray:
+    """The group must carry exactly one rank per shard; returns the
+    stacked leaf-point array."""
+    lp = stacked["leaf_pts"]
+    if lp.shape[0] != group.size:
+        raise ValueError(
+            f"process group has {group.size} ranks but table has "
+            f"{lp.shape[0]} shards"
+        )
+    return lp
+
+
+def _rank_shard(stacked: dict, group) -> DeviceTable:
+    """The rank's shard of a :meth:`ShardedDeviceTable.stacked` layout,
+    uploaded to the group's device as a leaf-blocks-only
+    :class:`DeviceTable` (no levels: the collective rounds scan leaf blocks
+    directly).  Only the rank's slice is read, so the arrays may be memory
+    maps."""
+    lp = _check_group(stacked, group)
+    r, dev = group.rank, group.device
+
+    def up(name):
+        return torch.from_numpy(np.array(stacked[name][r])).to(dev)
+
+    counts = up("leaf_counts")
+    none = torch.zeros((0, lp.shape[-1]), dtype=torch.float32, device=dev)
+    return DeviceTable(
+        leaf_pts=up("leaf_pts"), leaf_ids=up("leaf_ids"), leaf_counts=counts,
+        leaf_lo=up("leaf_lo"), leaf_hi=up("leaf_hi"), levels=(), terminals=(),
+        cold_lo=none, cold_hi=none, n_points=int(counts.sum()),
+    )
+
+
+def _f32_rows(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.atleast_2d(np.asarray(a, dtype=np.float32))).to(device)
+
+
+def knn_batch_shard_map(
+    stacked: dict, qs: np.ndarray, k: int, group,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Two-round k-NN as one collective over a process group, called by
+    every rank.
+
+    ``stacked`` is :meth:`ShardedDeviceTable.stacked` (host arrays); the
+    group plays the m local servers (its size must equal the shard count).
+    Each rank uploads its shard and scans *all* of its leaf blocks
+    (``_knn_core`` at the full budget: the local round is exact by
+    construction), in query chunks so that one (queries x slots) distance
+    plane stays within ``ops.KNN_MAX_ELEMS``; the global round is
+    :func:`~.distributed.gather_topk_merge`.
+
+    Returns ``(d2, ids)`` of shape (Q, k') on every rank, ascending per
+    query, ``k' = min(k, L*S)``; entries beyond a query's reachable points
+    carry ``id = -1`` at f32 max (the reference: ``+inf``)."""
+    dev = _rank_shard(stacked, group)
+    qt = _f32_rows(qs, dev.device)
+    n_l, s = dev.n_leaves, dev.leaf_size
+    chunk = max(ops.KNN_MAX_ELEMS // (n_l * s), 1)
+    parts = [_knn_core(dev, qt[a:a + chunk], k, n_l)
+             for a in range(0, max(qt.shape[0], 1), chunk)]
+    ids = torch.cat([p[0] for p in parts])
+    d2 = torch.cat([p[1] for p in parts])
+    top_d2, sel, _ = gather_topk_merge(d2, ids, group, d2.shape[-1])
+    return top_d2.cpu().numpy(), sel.cpu().numpy()
+
+
+def window_count_batch_shard_map(
+    stacked: dict, los: np.ndarray, his: np.ndarray, group,
+) -> np.ndarray:
+    """Exact batched window counts as one sum over a process group, called
+    by every rank.
+
+    Each rank counts its shard's points inside each window with
+    ``ops.window_count`` over its (L*S, d) leaf points, the slots past a
+    leaf's fill count masked out (no (Q, L, S) plane); the global count is
+    the cross-rank sum.  Returns int32 counts (Q,) on every rank, as the
+    reference does."""
+    dev = _rank_shard(stacked, group)
+    slot = torch.arange(dev.leaf_size, dtype=torch.int32, device=dev.device)
+    valid = (slot[None, :] < dev.leaf_counts[:, None]).reshape(-1).to(torch.int32)
+    local = ops.window_count(_f32_rows(los, dev.device), _f32_rows(his, dev.device),
+                             dev.leaf_pts.reshape(-1, dev.dim), valid)
+    return all_reduce_sum(group, local).cpu().numpy()

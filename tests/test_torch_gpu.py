@@ -12,7 +12,9 @@ the same export on the CPU (where every kernel runs as its plain version),
 a ``RetrievalServer`` on the card against the same server on the CPU,
 a streaming ``DeviceQueryServer`` (with recovery and the frontend) and
 sharded servers (static, a dead shard and its repair, streaming) on the
-card against the same server on the CPU and a brute force.
+card against the same server on the CPU and a brute force, and the
+collective build and rounds on ranks on the card against the same ranks
+on the CPU.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro_torch.core import (
     AMBI,
     DeviceTable,
     PageStore,
+    ShardedDeviceTable,
     StreamingIndex,
     bulk_load,
     compress_boxes_bf16,
@@ -968,3 +971,57 @@ def test_window_count_gathered_edge_shapes_match_plain(cuda, d, npp):
             assert torch.equal(got, want), (nq, p_t.data_ptr() % 16, v_t.data_ptr() % 16)
         if npp == 39_168 and nq == 1024:
             assert want.sum() > 0 and (want[::3] == 0).all()
+
+
+def _collective_inputs(path, m):
+    """``collective_case``'s inputs at a small n: ``osm_like`` points (f32),
+    64 queries and windows, two overflowing queries and the stacked layout
+    of an FMBI index over the same points at ``m`` shards."""
+    rng = np.random.default_rng(41)
+    pts = osm_like(20_000, seed=3).astype(np.float32)
+    qs = rng.random((64, 2)).astype(np.float32)
+    data = {"osm": pts, "osm_qs": qs, "osm_los": qs - np.float32(0.02),
+            "osm_his": qs + np.float32(0.02),
+            "far_qs": np.array([[2e19, 0.5], [np.inf, 0.5]], dtype=np.float32)}
+    idx = bulk_load(pts.astype(np.float64), 60, PageStore(60))
+    st = ShardedDeviceTable.from_index(idx, m, device="cpu").stacked()
+    data.update({f"stacked.{m}.osm.{key}": v for key, v in st.items()})
+    np.savez(path / "inputs.npz", **data)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("m", "backend"), [(2, "gloo"), (1, "nccl")])
+def test_collective_build_and_rounds_match_plain(cuda, tmp_path, m, backend):
+    """``shard_build``, ``shard_knn`` and both collective rounds on ranks on
+    the card (two gloo ranks sharing it, or an NCCL world of one) equal the
+    same ranks on the CPU, where every kernel runs as its plain version;
+    the card's ranks launched the kernels of the path, and only gloo
+    staged through the host."""
+    import collective_ranks as CR
+
+    from repro_torch.core import mesh
+
+    _collective_inputs(tmp_path, m)
+    args = (str(tmp_path), ("osm",), ("osm",), 6, 16, 8)
+    card = mesh.run_ranks(CR.collective_case, m, backend=backend, devices=["cuda:0"] * m,
+                          args=args, timeout=300)
+    plain = mesh.run_ranks(CR.collective_case, m, backend="gloo", devices=["cpu"] * m,
+                           args=args, timeout=300)
+    want = ("leaf_mindist", "gathered_dist2", "window_count_tiles")
+    want += ("partition_assign",) if m > 1 else ()
+    for c, p in zip(card, plain):
+        for key in ("arrays", "knn", "knn_far"):
+            for a, b in zip(c["osm"][key], p["osm"][key]):
+                assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+        assert c["osm"]["n_dropped"] == p["osm"]["n_dropped"]
+        rc, rp = c["rounds"]["osm"], p["rounds"]["osm"]
+        assert np.array_equal(rc["window_count"], rp["window_count"])
+        for key in ("knn_batch", "knn_batch_far"):
+            (dc, ic), (dp, ip) = rc[key], rp[key]
+            assert np.array_equal(dc, dp)
+            for dq, a, b in zip(dc, ic, ip):   # ids may differ only among ties
+                below = dq < dq[-1]
+                assert set(a[below].tolist()) == set(b[below].tolist())
+        assert all(c["launches"][kk] > 0 for kk in want), c["launches"]
+        assert not any(p["launches"].values())
+        assert (c["staged_bytes"] > 0) == (backend == "gloo")

@@ -33,7 +33,18 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # collective_ranks.py: the rank entry module that spawned test ranks import
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tests" / "collective_ranks.py"]
+
+
+def test_port_files_cover_the_process_group_modules():
+    """The process-group layer and every rank entry module (``run_ranks``
+    spawns ranks that import them) are held to the port's import rule."""
+    files = set(_port_files())
+    for path in (PORT / "core" / "mesh.py", PORT / "core" / "distributed.py",
+                 REPO / "chip_smoke.py", REPO / "tests" / "collective_ranks.py"):
+        assert path in files and path.exists()
 
 
 def _imported_modules(path: pathlib.Path):
@@ -74,7 +85,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.distributed_torch, repro_torch.serve.resilience, "
         "repro_torch.serve.faults, repro_torch.analysis.runtime, "
         "repro_torch.core.streaming, repro_torch.serve.journal, "
-        "repro_torch.serve.frontend, repro_torch.core.distributed\n"
+        "repro_torch.serve.frontend, repro_torch.core.distributed, "
+        "repro_torch.core.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -154,6 +166,29 @@ def test_grid_index_and_server_need_cuda_or_cpu(monkeypatch, tmp_path):
         host.to(None)
     assert RetrievalServer(pts, 3, device="cpu").index.device.type == "cpu"
     assert RetrievalServer.from_snapshot(snap, device="cpu").index.device.type == "cpu"
+
+
+def test_collective_entry_points_need_cuda_or_cpu(monkeypatch):
+    """A shard's ``GridIndex`` unpacks to the card unless the caller names
+    the CPU; the host bridge to ``NodeTable`` runs on the host; a rank's
+    card is named by its index, and NCCL takes only cards."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import mesh
+
+    pts = np.random.default_rng(4).random((64, 2)).astype(np.float32)
+    local = D.LocalShard(GI.build(pts, 3, device="cpu"), 64, 0,
+                         torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1)))
+    shard_out = D.stack_shards([local.arrays()])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        D.unpack_local_index(shard_out, 0, 3)
+    assert D.unpack_local_index(shard_out, 0, 3, device="cpu").device.type == "cpu"
+    (table,) = D.shard_build_tables(shard_out, 3)
+    assert sorted(table.perm.tolist()) == list(range(64))
+    with pytest.raises(ValueError, match="index"):
+        mesh.run_ranks(D.shard_build, 1, backend="gloo", devices=["cuda"])
+    with pytest.raises(ValueError, match="NCCL"):
+        mesh.run_ranks(D.shard_build, 1, backend="nccl", devices=["cpu"])
 
 
 def _meta(*shape, dtype=torch.float32):
