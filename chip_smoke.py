@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main, serving, streaming, sharded, collective,
-first-generation and retrieval paths on one NVIDIA GPU and check them.
+first-generation, retrieval, competitor-loader and LM serving paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -22,9 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
    k distinct dataset rows at +inf on both exports and both engines.
 4. The same at d = 5 over ``nycyt_like(2_000_000)``, with the windows
    (half-width 0.05) centred at dataset rows so that they hold points.
-   Phases 3a, 3s, 3h, 3c, 3u, 3w and 5 at d = 2 run right after phase 3,
-   and 4u, 4w, the d = 5 retrieval phase right after phase 4, on their
-   exports, points and batches.
+   Phases 3a, 3s, 3h, 3c, 3u, 3w, 5 and 3b at d = 2 run right after
+   phase 3, and 4u, 4w, the d = 5 retrieval phase right after phase 4, on
+   their exports, points and batches.
 3a. Serving (``DeviceQueryServer``, microbatches of 64).  Static: the
    server over phase 3's index answers its 1024 windows and 1024 k-NN
    queries; every window equals the fused batch's id set and every k-NN
@@ -154,7 +155,23 @@ Phases (any failure exits non-zero; nothing is caught):
    of the phase's four kernels must have launched.  Every window count
    must equal phase 3's fused window batch (f32 export), and the first 16
    certified ``knn`` answers and 16 ``knn_kernel`` answers the NumPy brute
-   force.
+   force.  Then the NaN-row case (ROADMAP C.7): 10 evenly spread rows get
+   a NaN y and a second server is built over them; no NaN row may be
+   answered by ``knn`` or ``knn_kernel``, and the first 16 answers of each
+   equal the brute force.  The selection's total-order key pass, its
+   stable sort and the whole ``top_k`` are timed on grid ``knn``'s two
+   selection planes.
+3b. Competitor loaders, right after phase 5: each of the six
+   ``ALL_LOADERS`` trees (FMBI, Hilbert packing, STR, OMT, KDB, Waffle)
+   over ``osm_like(3_000_000, seed=7)`` (phase 3's generator cut from 10M
+   points for the host builds' time; buffer 5 % of the pages), built on
+   the host (seconds, IOStats, ``leaf_stats``, ``overlap_area_2d``),
+   exported to the card (f32) and queried with phase 3's generators (1024
+   windows of half-width 0.01, 1024 k-NN queries with k = 16, three runs
+   each), the counts zeroed before and read after each tree (the four
+   main-path kernels must launch for every tree).  Every window's id set
+   and every k-NN distance sequence must be equal across the six trees,
+   and the first 32 windows and 16 queries equal the brute force.
 6. The same at d = 5 over phase 4's points and queries, ``levels=13``.
 7. Kernels: each kernel is called on the inputs its path gave it (the
    largest call per kernel and bound type for ``box_hits``,
@@ -180,8 +197,25 @@ Phases (any failure exits non-zero; nothing is caught):
    shard, the refreshed shards), rank 0's calls of phase 3c
    (``<dtype>:collective``, saved by the rank with ``torch.save``) and
    its protocols' calls on the built shards
-   (``<dtype>:collective_tables``: first, smallest and last).  Each phase
-   also counts its launches by shape (``launch_shapes``).
+   (``<dtype>:collective_tables``: first, smallest and last), and phase
+   3b's per tree (``<dtype>:competitors:<loader>``: first, smallest and
+   largest; Hilbert's overlapping boxes and KDB's unpacked leaves).  Each
+   phase also counts its launches by shape (``launch_shapes``).
+   ``gathered_dist2`` and ``pair_dist2`` are timed beside one batched
+   ``torch.cdist`` (direct sums, squared) as ``pairwise_dist2`` is beside
+   ``torch.cdist``.
+8. LM serving, after phase 7: the dense LM at qwen3-0.6b's full width
+   (28 layers, d 1024, 16/8 heads of 128, d_ff 3072, vocab 151,936, tied
+   embeddings), its weights drawn from a seeded ``torch.Generator`` on
+   the card.  In float32, the prefill of a 2 x 120 prompt and 8 decode
+   steps must be within ``LM_TOL`` of one full forward over the 128
+   tokens, and ``LMServer.generate`` of 2 x 128 -> 16 new tokens must
+   equal the argmax of one full forward over the prompt and the generated
+   tokens.  Then ``generate`` in bfloat16 (batch 4, prompt 512, 64 new
+   tokens) is timed: prefill, decode per step, tokens per second, peak
+   allocation.  The float32 checks are repeated on a gemma3-style config
+   at d_model 1024 (five local layers of window 1024 and a global one,
+   then two remainder local layers) with a 512-token prompt.
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
@@ -189,8 +223,9 @@ k-NN batch (phase 3a's first batch, replayed), of phase 3s's window and
 k-NN batch on the multi-tier state, of one warm 64-query window and k-NN
 microbatch of phase 3h's ``shards=4`` server and one insert of 2048
 points with its sharded sync, of the fused window batch's
-frontier alone (``box_hits`` and the mask operations around it), and of
-the retrieval ``knn``,
+frontier alone (``box_hits`` and the mask operations around it), of
+phase 3b's window and k-NN batch per tree, of phase 8's bfloat16 prefill
+and one decode step, and of the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
 share, time by kernel name).  The line before the last is one JSON
 object listing the kernels; the last line is ``{"ok": true, "device":
@@ -304,15 +339,17 @@ class Recorder:
     first call (the whole batch's first round or first pair chunk) for the
     others, and for the kernels of ``SMALLEST`` also the smallest (key
     dtype ``<dtype>:smallest``); with ``last``, also every kernel's last
-    call (``<dtype>:last``).  ``suffix`` follows the dtype in every key.
+    call (``<dtype>:last``); with ``largest``, also every kernel's largest
+    call (``<dtype>:largest``).  ``suffix`` follows the dtype in every key.
     ``shapes`` counts the calls of every kernel, not only those of
     ``names``, by ``"<bound argument shape> -> <output shape>"``."""
 
-    def __init__(self, ops, names, suffix="", last=False):
+    def __init__(self, ops, names, suffix="", last=False, largest=False):
         self.ops = ops
         self.names = names
         self.suffix = suffix
         self.last = last
+        self.largest = largest
         self.calls: dict = {}
         self.shapes: dict = {}
         self._orig = {}
@@ -346,6 +383,10 @@ class Recorder:
                 self.calls[small] = (args, kw, first.numel())
             if name in self.names and self.last:
                 self.calls[(name, f"{label}:last")] = (args, kw, first.numel())
+            big = (name, f"{label}:largest")
+            if name in self.names and self.largest and (
+                    big not in self.calls or first.numel() > self.calls[big][2]):
+                self.calls[big] = (args, kw, first.numel())
             shape = (f"{dtype} {'x'.join(map(str, bound.shape))} -> "
                      f"{'x'.join(map(str, first.shape))}")
             by_shape = self.shapes.setdefault(name, {})
@@ -434,6 +475,13 @@ def timed_runs(fn, torch, launches, runs=2):
 # --------------------------------------------------------------------------
 # one main-path run
 # --------------------------------------------------------------------------
+def buffer_pages_for(n, d):
+    """benchmarks/common.py:buffer_pages, recomputed: 5 % of the data pages."""
+    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
+
+    return max(int(-(-n // leaf_capacity(d)) * 0.05), branch_capacity(d) + 1)
+
+
 def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
               device="cuda", half_width=0.01, at_points=False, profile=False):
     """Bulk load ``pts``, export it plain and compressed, run the window and
@@ -442,13 +490,11 @@ def main_path(tag, pts, seed_q, n_windows, n_knn, k, torch, rt, launches,
     ``half_width`` are centred uniformly in [0, 0.9)^d, or at dataset rows
     when ``at_points``; k-NN queries are uniform in [0, 1)^d.  Returns the
     measurements and the recorded kernel calls."""
-    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
     from repro_torch.core.queries_torch import _frontier_count
     from repro_torch.kernels import ops
 
     n, d = pts.shape
-    # benchmarks/common.py:buffer_pages, recomputed: 5 % of the data pages
-    buffer_pages = max(int(-(-n // leaf_capacity(d)) * 0.05), branch_capacity(d) + 1)
+    buffer_pages = buffer_pages_for(n, d)
     out = {"n": n, "d": d, "buffer_pages": buffer_pages}
     t0 = time.perf_counter()
     idx = rt.bulk_load(pts, buffer_pages, rt.PageStore(buffer_pages))
@@ -947,7 +993,6 @@ def streaming_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches,
     import shutil
 
     from repro_torch.core.datasets import osm_like
-    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
     from repro_torch.kernels import ops
     from repro_torch.serve import Frontend, VirtualClock
 
@@ -1189,7 +1234,7 @@ def streaming_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches,
 
         # -- adaptive durability at a smaller depth
         dp = osm_like(durable_n, seed=7).astype(np.float32).astype(np.float64)
-        dbuf = max(int(-(-durable_n // leaf_capacity(2)) * 0.05), branch_capacity(2) + 1)
+        dbuf = buffer_pages_for(durable_n, 2)
         ddir, kdir = tmp / "adaptive", tmp / "killed"
         ddir.mkdir()
         dsrv = Server.from_ambi(rt.AMBI(dp, dbuf), microbatch=STREAM_BATCH, compact_slack=0.0,
@@ -1363,7 +1408,6 @@ def sharded_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches, device=
     from repro_torch.core import distributed_torch as DT
     from repro_torch.core.datasets import osm_like
     from repro_torch.core.geometry import boxes_intersect_windows, boxes_mindist_sq
-    from repro_torch.core.pagestore import branch_capacity, leaf_capacity
     from repro_torch.kernels import ops
     from repro_torch.serve import FaultPlan, FaultRule, RetryPolicy
 
@@ -1540,8 +1584,7 @@ def sharded_path(tag, pts, inputs, buffer_pages, k, torch, rt, launches, device=
             if small_n:
                 pts = osm_like(small_n, seed=7)
                 pts32 = pts.astype(np.float32)
-                buffer_pages = max(int(-(-small_n // leaf_capacity(2)) * 0.05),
-                                   branch_capacity(2) + 1)
+                buffer_pages = buffer_pages_for(small_n, 2)
             p = pts32.astype(np.float64)
             t0 = time.perf_counter()
             ambi = rt.AMBI(p, buffer_pages)
@@ -2010,13 +2053,115 @@ def collective_path(tag, pts, inputs, k, torch, rt, launches, device="cuda:0",
 # --------------------------------------------------------------------------
 # the retrieval path (balanced grid index + RetrievalServer)
 # --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# phase 3b: the paper's competitor loaders behind the device engine
+# --------------------------------------------------------------------------
+COMPETITOR_N = 3_000_000   # phase 3's 10M points cut for the host builds' time
+
+
+def competitors_path(tag, n, k, torch, rt, launches, device="cuda", profile=False):
+    """Phase 3b: each of the six ``ALL_LOADERS`` trees over
+    ``osm_like(n, seed=7)`` (buffer 5 % of the pages) built on the host
+    (seconds, IOStats, ``leaf_stats``, ``overlap_area_2d``), exported to
+    the card (f32) and queried with phase 3's generators: one 1024-window
+    batch (half-width 0.01) and one 1024-query k-NN batch, three runs each,
+    the counts zeroed before and read after (the four main-path kernels
+    must launch for every tree).  Every window's id set and every k-NN
+    distance sequence must be equal across the six trees, and the first
+    windows and queries equal to the brute force.  Returns the
+    measurements and each tree's first, smallest and largest kernel calls
+    (``<dtype>:competitors:<loader>``).  ``profile`` adds a trace of one
+    warm batch of each kind per tree."""
+    from repro_torch.core.datasets import osm_like
+    from repro_torch.core.metrics import overlap_area_2d
+    from repro_torch.kernels import ops
+
+    pts = osm_like(n, seed=7)
+    d = pts.shape[1]
+    buffer_pages = buffer_pages_for(n, d)
+    qrng = np.random.default_rng(11)           # phase 3's generators
+    centres = qrng.random((1024, d)) * 0.9
+    los, his = centres - 0.01, centres + 0.01
+    qs = qrng.random((1024, d))
+    out = {"n": n, "d": d, "buffer_pages": buffer_pages, "trees": {}}
+    calls, answers = {}, {}
+    for name in sorted(rt.ALL_LOADERS):
+        rec = {}
+        store = rt.PageStore(buffer_pages)
+        t0 = time.perf_counter()
+        idx = rt.ALL_LOADERS[name](pts, buffer_pages, store)
+        rec["build_s"] = time.perf_counter() - t0
+        rec["io"] = {"reads": store.stats.reads, "writes": store.stats.writes,
+                     "total": store.stats.total}
+        rec["leaf_stats"] = rt.leaf_stats(idx).as_row()
+        rec["overlap_area_2d"] = overlap_area_2d(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = rt.DeviceTable.from_index(idx, device=device)
+        torch.cuda.synchronize()
+        rec["export_s"] = time.perf_counter() - t0
+        rec.update(leaves=dev.n_leaves, leaf_size=dev.leaf_size, levels=len(dev.levels))
+        recorder = Recorder(ops, MAIN_PATH, suffix=f":competitors:{name}", largest=True)
+        launches.reset()
+        with recorder:
+            wres, rec["window"] = timed_runs(
+                lambda: rt.window_query_batch_torch(dev, los, his, fused=True), torch,
+                launches, runs=3)
+            kres, rec["knn"] = timed_runs(
+                lambda: rt.knn_query_batch_torch(dev, qs, k, fused=True, return_dists=True),
+                torch, launches, runs=3)
+        rec["window"]["chunks"] = rec["window"]["launches"].get("pair_window_ids", 0)
+        rec["knn"]["rounds"] = rec["knn"]["launches"].get("leaf_mindist", 0)
+        rec["launches"] = launches.counts()
+        rec["launch_shapes"] = recorder.shapes
+        missing = [kk for kk in MAIN_PATH if rec["launches"][kk] == 0]
+        if missing:
+            raise AssertionError(f"[{tag}] {name}: main-path kernels not launched: {missing}")
+        calls.update(recorder.calls)
+        if profile:
+            rec["profile"] = profile_batches({
+                "window": lambda: rt.window_query_batch_torch(dev, los, his, fused=True),
+                "knn": lambda: rt.knn_query_batch_torch(dev, qs, k, fused=True)}, torch)
+        answers[name] = ([np.sort(w) for w in wres], kres)
+        out["trees"][name] = rec
+        log(f"[{tag}] {name}: build {rec['build_s']:.3f} s, io {rec['io']}, "
+            f"{rec['leaves']} leaves of <= {rec['leaf_size']} slots, {rec['levels']} levels, "
+            f"leaf_stats {rec['leaf_stats']}, overlap {rec['overlap_area_2d']}; export "
+            f"{rec['export_s']:.3f} s; window {rec['window']}; knn {rec['knn']}")
+        del dev, idx, recorder
+
+    first = "fmbi"
+    wins, (_, dists) = answers[first]
+    for name, (w, (_, kd)) in answers.items():
+        if len(w) != len(wins) or any(not np.array_equal(a, b) for a, b in zip(w, wins)):
+            raise AssertionError(f"[{tag}] {name}'s windows differ from {first}'s")
+        if len(kd) != len(dists) or any(not np.array_equal(a, b) for a, b in zip(kd, dists)):
+            raise AssertionError(f"[{tag}] {name}'s k-NN distances differ from {first}'s")
+    pts32 = pts.astype(np.float32)
+    lo32, hi32, qs32 = los.astype(np.float32), his.astype(np.float32), qs.astype(np.float32)
+    for i in range(32):
+        if not np.array_equal(wins[i], brute_window(pts32, lo32[i], hi32[i])):
+            raise AssertionError(f"[{tag}] window {i} differs from brute force")
+    for i in range(16):
+        full = brute_d2(pts32, qs32[i])
+        for name, (_, (ids, kd)) in answers.items():
+            check_knn(full, ids[i], kd[i], k)
+    out["ids_per_batch"] = int(sum(len(w) for w in wins))
+    log(f"[{tag}] all six trees: 1024 windows ({out['ids_per_batch']} ids) and 1024 "
+        f"k-NN distance sequences equal; the first 32 windows and 16 queries equal "
+        f"the brute force")
+    return out, calls
+
+
 def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
-                   n_kernel=64, n_check=16, device="cuda", profile=False):
+                   n_kernel=64, n_check=16, device="cuda", profile=False, nan_rows=0):
     """Build ``RetrievalServer(pts, levels)`` on the card, run its batches
     cold and warm with the launch counts zeroed before and read after, and
     check them against phase 3's (or 4's) fused window counts and the
-    NumPy brute force.  Returns the measurements and the recorded kernel
-    calls."""
+    NumPy brute force.  With ``nan_rows``, also the NaN-row case
+    (:func:`nan_row_case`) and the cost of the selection's total-order key
+    (:func:`selection_cost`).  Returns the measurements and the recorded
+    kernel calls."""
     from repro_torch.core import grid_index as GI
     from repro_torch.kernels import ops
 
@@ -2123,6 +2268,11 @@ def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
         f"{checked} and {n_check} knn_kernel answers equal the brute force; "
         f"{out['route_all']['share_in_own_box']:.6f} of the points lie in their "
         f"routed leaf's box")
+    if nan_rows:
+        out["nan_rows"] = nan_row_case(tag, pts32, qs32, nan_rows, levels, k, n_check,
+                                       n_kernel, rt, device)
+        out["selection"] = selection_cost(index, qs32, torch, device)
+        log(f"[{tag}] selection cost (ms): {out['selection']}")
     if profile:
         srv.adaptive = False
         out["profile"] = profile_batches({
@@ -2132,6 +2282,61 @@ def retrieval_path(tag, pts, inputs, levels, k, torch, rt, launches,
         log(f"[{tag}] profile: {out['profile']}")
     del srv, boot
     return out, recorder.calls
+
+
+def nan_row_case(tag, pts32, qs32, n_nan, levels, k, n_check, n_kernel, rt, device):
+    """ROADMAP C.7 on the card: ``n_nan`` rows of the points, evenly spread,
+    get a NaN y and a ``RetrievalServer`` is built over them.  A NaN
+    distance ranks last (``lax.top_k``'s total order), so no NaN row may be
+    answered; the first ``n_check`` certified ``knn`` answers and
+    ``knn_kernel`` answers must equal the brute force (NaN rows last)."""
+    bad = np.linspace(0, len(pts32) - 1, n_nan).astype(np.int64)
+    pts_nan = pts32.copy()
+    pts_nan[bad, 1] = np.nan
+    srv = rt.RetrievalServer(pts_nan, levels=levels, device=device)
+    rows, d2, exact = srv.knn(qs32, k, n_candidate_leaves=16)
+    kidx, kd2 = srv.knn_kernel(qs32[:n_kernel], k)
+    krows = srv.index.row_ids.cpu().numpy()[kidx]
+    if np.isin(rows, bad).any() or np.isin(krows, bad).any():
+        raise AssertionError(f"[{tag}] a NaN row was answered as a nearest neighbour")
+    certified = np.flatnonzero(exact)[:n_check]
+    if len(certified) < n_check:
+        raise AssertionError(f"[{tag}] only {len(certified)} certified answers over NaN rows")
+    for i in certified:
+        check_knn(brute_d2(pts_nan, qs32[i]), rows[i], d2[i], k)
+    for i in range(min(n_check, n_kernel)):
+        check_knn(brute_d2(pts_nan, qs32[i]), krows[i], kd2[i], k)
+    log(f"[{tag}] {n_nan} NaN rows: no NaN row answered by knn ({int(exact.sum())} of "
+        f"{len(qs32)} certified) or knn_kernel; the first {n_check} of each equal the "
+        f"brute force")
+    return {"rows": n_nan, "certified": int(exact.sum())}
+
+
+def selection_cost(index, qs32, torch, device, n_c=16, reps=10):
+    """Event times (ms) of the selection's total-order key pass, of the
+    stable sort it feeds and of the whole ``ref.top_k``, on the two
+    selections of grid ``knn``: candidate leaves by mindist ``(Q, L)`` and
+    the candidates' slots by distance ``(Q, n_c * S)``."""
+    from repro_torch.kernels import ops, ref
+
+    q = torch.from_numpy(qs32).to(device)
+    n_l, s = index.n_leaves, index.leaf_size
+    mind = ops.leaf_mindist_tiled(q, index.leaf_lo, index.leaf_hi)
+    cand = ref.top_k(-mind, n_c)[1]
+    valid = (index.row_ids >= 0).view(n_l, s)[cand].reshape(len(q), n_c * s)
+    d2 = ops.gathered_dist2(q, index.points_sorted.view(n_l, s, -1)[cand].reshape(
+        len(q), n_c * s, -1), valid.to(torch.int32))
+    out = {}
+    for name, x, k in (("leaves", -mind, n_c + 1), ("slots", -d2, 16)):
+        key = ref.total_order_key(x)
+        out[name] = {
+            "shape": list(x.shape),
+            "key_ms": time_ms(lambda: ref.total_order_key(x), reps, torch),
+            "sort_ms": time_ms(lambda: torch.sort(key, dim=-1, descending=True, stable=True),
+                               reps, torch),
+            "top_k_ms": time_ms(lambda: ref.top_k(x, k), reps, torch),
+        }
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2386,8 +2591,20 @@ def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
              "window_mask_gathered": ref.window_mask_gathered_ref,
              "window_count_tiles": ref.window_count_ref}
     # the nearest single PyTorch call, timed beside the kernel and used
-    # nowhere in the port (unsquared and unmasked)
-    library = {"pairwise_dist2": lambda q, p, valid: torch.cdist(q, p)}
+    # nowhere in the port: given a call's arguments, the call to time.
+    # pairwise_dist2's is unsquared and unmasked; the per-query distances
+    # of gathered_dist2 and pair_dist2 are one batched cdist (direct sums,
+    # squared, unmasked), pair_dist2's on its pairs' gathered queries and
+    # leaf blocks (the gather not timed)
+    def cdist2(q, pts):
+        return lambda: torch.cdist(
+            q[:, None], pts, compute_mode="donot_use_mm_for_euclid_dist").square_()
+
+    library = {
+        "pairwise_dist2": lambda q, p, valid: lambda: torch.cdist(q, p),
+        "gathered_dist2": lambda q, pts, valid: cdist2(q, pts),
+        "pair_dist2": lambda q, pts, cnt, qi, li: cdist2(q[qi.long()], pts[li.long()]),
+    }
     flush = l2_flush(torch) if timed else None
     res = {}
     for (name, bdtype), (args, kw, _) in sorted(calls.items()):
@@ -2412,7 +2629,7 @@ def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
                                  torch),
                 bytes=b, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=(time_ms(lambda: library[name](*args), reps, torch)
+                library_ms=(time_ms(library[name](*args), reps, torch)
                             if name in library else None),
             )
             rec["device_ms"] = device_ms(lambda: kernel[name](*args, **kw), reps, torch,
@@ -2421,6 +2638,161 @@ def kernel_phase(calls, torch, timed, reps: int = 20) -> dict:
         res[(name, bdtype)] = rec
         log(f"kernel {name} ({bdtype}): bitwise equal to plain; {rec}")
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: the dense LM served on the card
+# --------------------------------------------------------------------------
+LM_ARCH = "qwen3-0.6b"
+LM_LOCAL_ARCH = "gemma3-27b"    # cut to one superblock and two remainder layers
+# float32 logits are of unit scale; prefill + decode against one full
+# forward differ by the order of float32 sums (tests/test_decode.py's
+# decode tolerance)
+LM_TOL = 2e-3
+
+
+def lm_checks(tag, lm, prompt_len, n_decode, n_new, torch, rng):
+    """Float32 checks of one model: prefill of a 2 x ``prompt_len`` prompt
+    and ``n_decode`` decode steps against one full forward over the
+    ``prompt_len + n_decode`` tokens, and ``generate`` of ``n_new`` tokens
+    against the argmax of one full forward over the prompt and the
+    generated tokens (teacher forcing; a position may differ only where
+    that forward's top two logits are within ``LM_TOL``)."""
+    from repro_torch.serve import LMServer
+
+    cfg = lm.cfg
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len + n_decode))).to(
+        lm.device)
+    full = lm(toks)
+    last, cache = lm.prefill(toks[:, :prompt_len], cache_len=prompt_len + n_decode)
+    errs = [float((last[:, -1] - full[:, prompt_len - 1]).abs().max())]
+    for t in range(prompt_len, prompt_len + n_decode):
+        lg, cache = lm.decode_step(toks[:, t:t + 1], cache,
+                                   torch.full((2,), t, device=toks.device))
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    del full, cache
+    prompt = toks[:, :prompt_len].cpu().numpy()
+    gen = LMServer(lm).generate(prompt, n_new)
+    seq = torch.from_numpy(np.concatenate([prompt, gen], axis=1)).to(lm.device)
+    forced = lm(seq[:, :-1])[:, prompt_len - 1:]
+    want = forced.argmax(dim=-1).cpu().numpy()
+    near = 0
+    for b, i in zip(*np.nonzero(gen != want)):
+        gap = float(forced[b, i, want[b, i]] - forced[b, i, gen[b, i]])
+        if gap > LM_TOL:
+            raise AssertionError(f"[{tag}] generate's token {i} of row {b} is {gen[b, i]}, "
+                                 f"the full forward's argmax {want[b, i]} ({gap} higher)")
+        near += 1
+    out = {"prefill_decode_max_abs_err": max(errs), "errs": errs, "tol": LM_TOL,
+           "generated": gen.tolist(), "near_ties": near}
+    if max(errs) > LM_TOL:
+        raise AssertionError(f"[{tag}] prefill + decode differ from the full forward by "
+                             f"{max(errs)} > {LM_TOL}")
+    log(f"[{tag}] f32: prefill {prompt_len} + {n_decode} decode steps against one full "
+        f"forward: max abs err {max(errs):.3e} (tol {LM_TOL}); generate of {n_new} tokens "
+        f"equals teacher forcing ({near} near ties)")
+    return out
+
+
+def lm_path(tag, torch, smi, device="cuda", profile=False):
+    """Phase 8: the dense LM at qwen3-0.6b's full width (28 layers, d 1024,
+    16/8 heads of 128, d_ff 3072, vocab 151,936, tied), initialised from a
+    seeded ``torch.Generator`` on the card.  Float32 checks
+    (:func:`lm_checks`: a 2 x 120 prompt with 8 decode steps, 2 x 128 ->
+    16 new tokens), then a timed ``generate`` in bfloat16 (batch 4, prompt
+    512, 64 new tokens; the second of two runs): prefill ms, median decode
+    ms per step, tokens per second and the peak allocation.  Then the f32
+    checks on a gemma3-style config at d_model 1024 (local_per_global 5,
+    window 1024, 8 layers: one superblock and two remainder local layers)
+    with a 512-token prompt, shorter than the window (ROADMAP C.8).
+    ``profile`` adds a trace of one bf16 prefill and one decode step."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import LMServer
+
+    rng = np.random.default_rng(21)
+    cfg = get_config(LM_ARCH)
+    out = {"arch": LM_ARCH, "nvidia_smi": smi}
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    lm = LM(f32, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in lm.parameters())
+    out["f32"] = lm_checks(tag, lm, 120, 8, 16, torch, rng)
+    del lm
+    torch.cuda.empty_cache()
+
+    lm = LM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    srv = LMServer(lm)
+    events = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            events[name].append((start, end))
+            return res
+        return call
+
+    lm.prefill, lm.decode_step = timed("prefill", lm.prefill), timed("decode", lm.decode_step)
+    batch, prompt_len, n_new = 4, 512, 64
+    prompt = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    runs = []
+    for _ in range(2):
+        for v in events.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = srv.generate(prompt, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+        decode_ms = [a.elapsed_time(b) for a, b in events["decode"]]
+        runs.append({"wall_s": wall, "prefill_ms": prefill_ms,
+                     "decode_ms_median": statistics.median(decode_ms),
+                     "decode_ms_max": max(decode_ms), "decode_steps": len(decode_ms),
+                     "tokens_per_s": batch * n_new / wall,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "allocated_at_start": start_bytes})
+    if gen.shape != (batch, n_new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"[{tag}] bf16 generate gave {gen.shape} tokens out of range")
+    out["bf16_generate"] = {"batch": batch, "prompt": prompt_len, "new": n_new,
+                            "runs": runs}
+    if profile:
+        _, cache = lm.prefill(prompt, prompt_len + 1)
+        last = torch.from_numpy(gen[:, :1]).to(lm.device)
+        pos = torch.full((batch,), prompt_len, device=lm.device)
+        out["profile"] = profile_batches({
+            "prefill": lambda: lm.prefill(prompt, prompt_len + 1),
+            "decode_step": lambda: lm.decode_step(last, cache, pos)}, torch)
+        log(f"[{tag}] profile: {out['profile']}")
+    log(f"[{tag}] {LM_ARCH} bf16 generate {batch} x {prompt_len} -> {n_new}: {runs}")
+    del lm, srv
+    torch.cuda.empty_cache()
+
+    local = dataclasses.replace(
+        get_config(LM_LOCAL_ARCH), name="gemma3-style-1024", n_layers=8, d_model=1024,
+        n_heads=8, n_kv_heads=4, d_ff=4096, dtype="float32")
+    lm = LM(local, device=device, generator=torch.Generator(device=device).manual_seed(1))
+    kinds = [layer.kind for layer in lm.layers]
+    if kinds != ["local"] * 5 + ["global"] + ["local"] * 2:
+        raise AssertionError(f"[{tag}] local config's layers are {kinds}")
+    out["local"] = {"config": {"n_layers": local.n_layers, "d_model": local.d_model,
+                               "local_window": local.local_window, "kinds": kinds,
+                               "vocab": local.vocab},
+                    **lm_checks(f"{tag} local", lm, 512, 8, 16, torch, rng)}
+    del lm
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2488,8 +2860,11 @@ def main(argv=None) -> int:
                                                             launches)
     results["retrieval_d2"], rcalls2 = retrieval_path("retrieval d=2", pts, inputs, 15,
                                                       16, torch, rt, launches,
-                                                      profile=args.profile)
+                                                      profile=args.profile, nan_rows=10)
     del pts, inputs
+    results["competitors_d2"], cmcalls2 = competitors_path("competitors d=2", COMPETITOR_N,
+                                                          16, torch, rt, launches,
+                                                          profile=args.profile)
     pts5 = nycyt_like(2_000_000)
     results["d5"], calls5, inputs = main_path("d=5", pts5, 11, 1024, 1024, 16, torch,
                                               rt, launches, half_width=0.05,
@@ -2505,10 +2880,16 @@ def main(argv=None) -> int:
 
     k2 = kernel_phase({**calls2, **ucalls2, **wcalls2, **rcalls2}, torch, timed=True)
     k5 = kernel_phase({**calls5, **ucalls5, **wcalls5, **rcalls5}, torch, timed=TIMED_D5)
-    # phase 3a's, 3s's, 3h's and 3c's calls (64-query microbatches, the
-    # partial export, the streaming mirror's export, the shards' ragged
-    # batches, rank 0's calls in phase 3c), held bit for bit but not timed
-    ks = kernel_phase({**scalls2, **stcalls2, **shcalls2, **ccalls2}, torch, timed=False)
+    # phase 3a's, 3s's, 3h's, 3c's and 3b's calls (64-query microbatches,
+    # the partial export, the streaming mirror's export, the shards' ragged
+    # batches, rank 0's calls in phase 3c, the competitor trees' overlapping
+    # and unpacked leaves), held bit for bit but not timed
+    ks = kernel_phase({**scalls2, **stcalls2, **shcalls2, **ccalls2, **cmcalls2}, torch,
+                      timed=False)
+    # the recorded calls hold the earlier phases' tensors on the card
+    del calls2, scalls2, stcalls2, shcalls2, ccalls2, ucalls2, wcalls2, rcalls2, cmcalls2
+    del calls5, ucalls5, wcalls5, rcalls5
+    results["lm"] = lm_path("lm", torch, smi, profile=args.profile)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

@@ -13,14 +13,22 @@ router, windows fanned out to the qualified shards, the two-round
 certified k-NN protocol) in each of those modes; the collective build
 and rounds of the paper's Section 5 on a ``torch.distributed`` process
 group, one rank per shard (``core.mesh``, ``core.distributed``);
-the paper's NumPy engine and oracles; the
-brute-force count ``kernels.ops.window_count``; and the retrieval path:
-the balanced ``GridIndex`` built on the device, its routing, window
-counts and k-NN, served by ``RetrievalServer``.  Ten hand-written Hopper
-kernels carry them.  It imports ``torch`` and numpy only.
+the paper's NumPy engine and oracles, its competitor loaders
+(``ALL_LOADERS``: Hilbert packing, STR, OMT, KDB, Waffle and FMBI) and
+the Table-1 leaf metrics (``leaf_stats``); the brute-force count
+``kernels.ops.window_count``; the retrieval path: the balanced
+``GridIndex`` built on the device, its routing, window counts and k-NN,
+served by ``RetrievalServer``; and the dense LM of the repo's model
+configs (``configs``, ``models.LM``) with greedy generation
+(``LMServer``).  Ten hand-written Hopper kernels carry the index paths.
+State carried across from the JAX package: ``index_from_arrays``,
+``table_from_arrays``, ``grid_index_from_arrays`` and, for the LM,
+``params_from_arrays``.  It imports ``torch`` and numpy only.
 """
 from .core import (
+    ALL_LOADERS,
     AMBI,
+    LOADERS,
     CompletenessCertificate,
     DeviceTable,
     GridIndex,
@@ -31,27 +39,34 @@ from .core import (
     ShardedDeviceTable,
     StreamingIndex,
     bulk_load,
+    grid_index_from_arrays,
+    index_from_arrays,
     knn_oracle,
     knn_query,
     knn_query_batch_sharded,
     knn_query_batch_torch,
+    leaf_stats,
     parallel_bulk_load,
+    table_from_arrays,
     window_oracle,
     window_query,
     window_query_batch_sharded,
     window_query_batch_torch,
 )
+from .models import LM, params_from_arrays
 from .serve import (
     DeviceQueryServer,
     DeviceQueryStats,
     FaultPlan,
     Frontend,
+    LMServer,
     RetrievalServer,
     RetrievalStats,
     RetryPolicy,
 )
 
 __all__ = [
+    "ALL_LOADERS",
     "AMBI",
     "CompletenessCertificate",
     "DeviceQueryServer",
@@ -62,6 +77,9 @@ __all__ = [
     "GridIndex",
     "Index",
     "IOStats",
+    "LM",
+    "LMServer",
+    "LOADERS",
     "NodeTable",
     "PageStore",
     "RetrievalServer",
@@ -70,11 +88,16 @@ __all__ = [
     "ShardedDeviceTable",
     "StreamingIndex",
     "bulk_load",
+    "grid_index_from_arrays",
+    "index_from_arrays",
     "knn_oracle",
     "knn_query",
     "knn_query_batch_sharded",
     "knn_query_batch_torch",
+    "leaf_stats",
     "parallel_bulk_load",
+    "params_from_arrays",
+    "table_from_arrays",
     "window_oracle",
     "window_query",
     "window_query_batch_sharded",

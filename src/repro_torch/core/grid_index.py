@@ -26,8 +26,11 @@ each with a tight box.  The class is :class:`GridIndex` (the JAX package's
     scans its closest ones (``gathered_dist2``) and keeps the top k.
 
 Selections follow ``jax.lax.top_k`` (``ref.top_k``: the lower index first
-among equal values), so straddle budgets and candidate leaves are the JAX
-package's.  The device of the index picks the arithmetic: on the card
+among equal values, by the float total order), so straddle budgets and
+candidate leaves are the JAX package's; the k-NN selections take the
+smallest distances directly (``ref.smallest_k``, the reference's
+``top_k(-d2)`` without a negation, which on the card would not keep a
+NaN's sign).  The device of the index picks the arithmetic: on the card
 every kernel launches (or raises), on the CPU the same function runs as
 its plain version.  Left out against the JAX module: the ``use_kernel``
 switch (the device decides) and ``window_count_traces``, a count of jit
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.ref import top_k
+from ..kernels.ref import smallest_k, top_k
 from .queries_torch import _pow2, resolve_device
 
 
@@ -245,15 +248,15 @@ def knn(index: GridIndex, queries, k: int, n_candidate_leaves: int = 8):
     nq = q.shape[0]
 
     mind = ops.leaf_mindist_tiled(q, index.leaf_lo, index.leaf_hi)     # (Q, L)
-    neg, cand_all = top_k(-mind, min(n_c + 1, n_l))
+    mind_sel, cand_all = smallest_k(mind, min(n_c + 1, n_l))
     cand = cand_all[:, :n_c]
     cand_valid = valid[cand].reshape(nq, n_c * s)
     d2 = ops.gathered_dist2(q, pts[cand].reshape(nq, n_c * s, -1),
                             cand_valid.to(torch.int32))
     d2 = torch.where(cand_valid, d2, torch.full_like(d2, float("inf")))
-    topv, topi = top_k(-d2, k)
+    top_d2, topi = smallest_k(d2, k)
     if n_c == n_l:
         exact = torch.ones(nq, dtype=torch.bool, device=q.device)
     else:
-        exact = -topv[:, -1] <= -neg[:, n_c]
-    return rows[cand].reshape(nq, n_c * s).gather(1, topi), -topv, exact
+        exact = top_d2[:, -1] <= mind_sel[:, n_c]
+    return rows[cand].reshape(nq, n_c * s).gather(1, topi), top_d2, exact

@@ -77,16 +77,17 @@ def pairwise_dist2(queries, points, valid=None):
 
 def knn_topk(queries, points, k: int, valid=None):
     """k nearest points per query: distance rows from ``pairwise_dist2``
-    and a ``top_k`` selection (lower index first among equal distances).
+    and a ``smallest_k`` selection (lower index first among equal
+    distances, NaN last).
 
     Returns ``(indices (nq, k), dists_sq (nq, k))``.  When the (nq, np)
     distance matrix would exceed ``KNN_MAX_ELEMS`` elements, the queries
     run in chunks sized to the cap, so one chunk's distances are live at
     a time."""
     chunk = max(KNN_MAX_ELEMS // max(points.shape[0], 1), 1)
-    parts = [ref.top_k(-pairwise_dist2(queries[s:s + chunk], points, valid), k)
+    parts = [ref.smallest_k(pairwise_dist2(queries[s:s + chunk], points, valid), k)
              for s in range(0, max(queries.shape[0], 1), chunk)]
-    return torch.cat([i for _, i in parts]), -torch.cat([v for v, _ in parts])
+    return torch.cat([i for _, i in parts]), torch.cat([v for v, _ in parts])
 
 
 def window_count_gathered(lo, hi, points, valid):

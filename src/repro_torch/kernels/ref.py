@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the Hopper kernels (the correctness
-contracts), and the ``top_k`` selection that the port runs beside them.
+contracts), and the ``top_k``/``smallest_k`` selections that the port
+runs beside them.
 
 Same names and argument order as the JAX package's ``kernels/ref.py``.
 Each function runs on whatever device its tensors lie on: the CPU tests
@@ -93,12 +94,42 @@ def pair_dist2_ref(queries, leaf_pts, leaf_counts, q_idx, leaf_idx):
     return torch.where(valid, acc, torch.full_like(acc, F32_MAX))
 
 
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+         torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def total_order_key(x):
+    """Integer keys that rank floats as ``jax.lax.top_k`` does, by the
+    float total order: -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN.
+    The bit pattern with its magnitude bits flipped where the sign is
+    set; integer inputs are their own keys."""
+    if not x.is_floating_point():
+        return x
+    bits = x.view(_BITS[x.dtype])
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & torch.iinfo(bits.dtype).max)
+
+
 def top_k(x, k: int):
     """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
-    descending order, the lower index first among equal values (a stable
-    sort; ``torch.topk`` leaves the order of ties unspecified)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    descending order of the float total order (``total_order_key``), the
+    lower index first among equal keys (a stable sort; ``torch.topk``
+    leaves the order of ties unspecified, and ``torch.sort`` puts every
+    NaN first whatever its sign)."""
+    _, idx = torch.sort(total_order_key(x), dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return x.gather(-1, idx), idx
+
+
+def smallest_k(x, k: int):
+    """``top_k(-x, k)`` without the negation: the ``k`` smallest values in
+    ascending total order (a NaN of positive sign last), the lower index
+    first among equal keys.  Returns ``(values, indices)``.  The k-NN
+    selections use it: on the card a negation does not keep a NaN's sign
+    (the device's arithmetic returns its canonical, positive NaN), so
+    ``top_k(-d2)`` would rank a NaN distance first there."""
+    _, idx = torch.sort(total_order_key(x), dim=-1, stable=True)
+    idx = idx[..., :k]
+    return x.gather(-1, idx), idx
 
 
 def partition_assign_ref(points, split_dim, split_val, *, levels: int):
@@ -134,8 +165,8 @@ def pairwise_dist2_ref(queries, points, valid):
 def knn_topk_ref(queries, points, valid, k: int):
     """k nearest points per query: the full distance matrix and a top-k
     (lower index first among equal distances).  Returns ``(idx, dists)``."""
-    neg, idx = top_k(-pairwise_dist2_ref(queries, points, valid), k)
-    return idx, -neg
+    d2, idx = smallest_k(pairwise_dist2_ref(queries, points, valid), k)
+    return idx, d2
 
 
 def window_count_gathered_ref(lo, hi, points, valid):

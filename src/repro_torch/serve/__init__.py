@@ -1,4 +1,5 @@
-"""Serving layer of the PyTorch port: window and k-NN serving over a
+"""Serving layer of the PyTorch port: greedy generation over the dense LM
+(``LMServer``), window and k-NN serving over a
 ``NodeTable``, static, adaptive over AMBI or streaming
 (``DeviceQueryServer``), with its resilience plane, fault injection,
 graft journal and recovery, the async frontend in front of it
@@ -7,6 +8,7 @@ graft journal and recovery, the async frontend in front of it
 from .engine import (
     DeviceQueryServer,
     DeviceQueryStats,
+    LMServer,
     RetrievalServer,
     RetrievalStats,
     StreamSyncError,
@@ -33,6 +35,7 @@ __all__ = [
     "GraftJournal",
     "InlineExecutor",
     "JournalError",
+    "LMServer",
     "Request",
     "RetrievalServer",
     "RetrievalStats",

@@ -1,11 +1,18 @@
-"""Serving engine of the PyTorch port: batched window and k-NN serving
-over a ``NodeTable`` (``DeviceQueryServer``, with AMBI's adaptive mode),
-and batched k-NN retrieval over the balanced grid index
-(``RetrievalServer``).
+"""Serving engine of the PyTorch port: greedy generation over the dense
+LM (``LMServer``), batched window and k-NN serving over a ``NodeTable``
+(``DeviceQueryServer``, with AMBI's adaptive mode), and batched k-NN
+retrieval over the balanced grid index (``RetrievalServer``).
 
-The port of ``DeviceQueryStats``, ``DeviceQueryServer``,
+The port of ``LMServer``, ``DeviceQueryStats``, ``DeviceQueryServer``,
 ``RetrievalServer`` and ``RetrievalStats`` from the JAX package's
 ``repro/serve/engine.py``.
+
+``LMServer`` prefills the prompt batch once into caches allocated at
+their final size (full-attention layers at ``cache_len``, local layers as
+rings of ``min(local_window, cache_len)`` slots) and then decodes one
+token per step on the model's device.  The reference grows its caches
+after the prefill instead, and misses a remainder local layer's ring
+(ROADMAP C.8); that fault is not copied.
 
 ``DeviceQueryServer`` exports the table to the card once and serves every
 microbatch through the device engine (``core/queries_torch.py``); in
@@ -69,6 +76,31 @@ from .resilience import (
     RetryPolicy,
     TableLock,
 )
+
+
+class LMServer:
+    """Greedy generation over a dense :class:`~repro_torch.models.LM`, on
+    the model's device."""
+
+    def __init__(self, lm):
+        self.lm = lm
+
+    def generate(self, tokens, max_new: int, cache_len: int | None = None) -> np.ndarray:
+        """Greedy generation for a ``(B, S)`` prompt batch: ``(B, max_new)``
+        token ids.  ``cache_len`` (``S + max_new`` unless given) must hold
+        every position a decode step writes, ``S + max_new - 1``."""
+        tokens = torch.as_tensor(tokens, device=self.lm.device)
+        b, s = tokens.shape
+        cache_len = cache_len or (s + max_new)
+        if cache_len < s + max_new - 1:
+            raise ValueError(f"cache_len {cache_len} < {s + max_new - 1} positions")
+        lg, cache = self.lm.prefill(tokens, cache_len)
+        out = [lg[:, -1].argmax(dim=-1)]
+        for t in range(max_new - 1):
+            pos = torch.full((b,), s + t, dtype=torch.int64, device=self.lm.device)
+            lg, cache = self.lm.decode_step(out[-1][:, None], cache, pos)
+            out.append(lg[:, 0].argmax(dim=-1))
+        return torch.stack(out, dim=1).cpu().numpy()
 
 
 @dataclasses.dataclass

@@ -67,3 +67,17 @@ def fail_in_collective(group, how):
             os._exit(3)
         time.sleep(3600)
     return mesh.all_gather(group, torch.ones(2)).numpy()
+
+
+def nan_knn_case(group, path, levels, k, n_cand):
+    """``shard_build`` over ``path/inputs.npz``'s ``pts`` (rank r takes rows
+    ``r*per .. (r+1)*per``), then ``shard_knn`` over its ``qs``.  Returns
+    this rank's row ids and the merged answer ``(d2, rows, source)``."""
+    data = np.load(f"{path}/inputs.npz")
+    pts = data["pts"]
+    m, r = group.size, group.rank
+    per = len(pts) // m
+    local = D.shard_build(pts[r * per:(r + 1) * per], levels, group)
+    res = D.shard_knn(local.index, data["qs"], k, group, n_candidate_leaves=n_cand)
+    return {"row_ids": local.index.row_ids.cpu().numpy(),
+            "knn": tuple(t.cpu().numpy() for t in res[:3])}

@@ -1025,3 +1025,78 @@ def test_collective_build_and_rounds_match_plain(cuda, tmp_path, m, backend):
         assert all(c["launches"][kk] > 0 for kk in want), c["launches"]
         assert not any(p["launches"].values())
         assert (c["staged_bytes"] > 0) == (backend == "gloo")
+
+
+@pytest.mark.gpu
+def test_knn_serving_twin_runs_on_the_card(cuda):
+    """``examples/torch_knn_serving.py`` with its default device: every
+    server on the card, every parity it prints holds."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    run = subprocess.run([sys.executable, str(repo / "examples" / "torch_knn_serving.py"),
+                          "--n", "50000"], cwd=str(repo), env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "on cuda" in run.stdout
+    for line in ("tree-pruned vs kernel distances agree: True",
+                 "id-parity vs NumPy engine: windows True, knn True",
+                 "id-parity vs single-table engine: windows True, knn True",
+                 "bit-identical table: True", "identical to the never-killed twin: True",
+                 "id-identical to the offline engine: True"):
+        assert line in run.stdout, (line, run.stdout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local", [False, True])
+def test_lm_generate_on_the_card_matches_the_cpu_port(cuda, local):
+    """A reduced dense LM (GQA and qk-norm, or local:global rings with a
+    remainder local layer) carried from the CPU to the card: logits within
+    1e-4 (float32, TF32 off) and the same greedy tokens."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import LM
+    from repro_torch.serve import LMServer
+
+    cfg = ModelConfig(name="t-card", family="dense", n_layers=4 if local else 2,
+                      d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=100,
+                      qk_norm=not local, local_window=12 if local else 0,
+                      local_per_global=2 if local else 0, dtype="float32", chunk_q=16)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+        card = LM(cfg, device=cuda, empty=True)
+        card.load_state_dict(cpu.state_dict())
+        prompt = np.random.default_rng(4).integers(0, cfg.vocab, (2, 8))
+        np.testing.assert_allclose(card(prompt).cpu().numpy(), cpu(prompt).numpy(),
+                                   atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(LMServer(card).generate(prompt, 8),
+                                      LMServer(cpu).generate(prompt, 8))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.gpu
+def test_nan_rows_rank_last_on_the_card(cuda):
+    """ROADMAP C.7 on the card: the k-NN selections take the smallest
+    distances without negating them (a negation on the card drops a NaN's
+    sign), so a NaN row is never answered, as on the CPU."""
+    rng = np.random.default_rng(0)
+    pts = rng.random((4096, 2)).astype(np.float32)
+    bad = rng.choice(4096, 10, replace=False)
+    pts[bad, 1] = np.nan
+    qs = rng.random((16, 2)).astype(np.float32)
+    card, host = (RetrievalServer(pts, 6, device=dev) for dev in (cuda, "cpu"))
+    for a, b in zip(card.knn(qs, 5), host.knn(qs, 5)):
+        assert np.array_equal(a, b)
+    for a, b in zip(card.knn_kernel(qs, 5), host.knn_kernel(qs, 5)):
+        assert np.array_equal(a, b)
+    got_i, got_d = ops.knn_topk(torch.from_numpy(qs).to(cuda), torch.from_numpy(pts).to(cuda), 7)
+    want_i, want_d = ops.knn_topk(torch.from_numpy(qs), torch.from_numpy(pts), 7)
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
+    assert not np.isin(card.knn(qs, 5)[0], bad).any()
+    assert not np.isin(got_i.cpu().numpy(), bad).any()

@@ -33,9 +33,10 @@ PORT = REPO / "src" / "repro_torch"
 
 
 def _port_files():
-    # collective_ranks.py: the rank entry module that spawned test ranks import
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "tests" / "collective_ranks.py"]
+    # collective_ranks.py: the rank entry module that spawned test ranks
+    # import; examples/torch_*.py: the example twins
+    return (sorted(PORT.rglob("*.py")) + sorted((REPO / "examples").glob("torch_*.py"))
+            + [REPO / "chip_smoke.py", REPO / "tests" / "collective_ranks.py"])
 
 
 def test_port_files_cover_the_process_group_modules():
@@ -44,6 +45,20 @@ def test_port_files_cover_the_process_group_modules():
     files = set(_port_files())
     for path in (PORT / "core" / "mesh.py", PORT / "core" / "distributed.py",
                  REPO / "chip_smoke.py", REPO / "tests" / "collective_ranks.py"):
+        assert path in files and path.exists()
+
+
+def test_port_files_cover_the_example_twins_and_the_lm():
+    """The three example twins, the competitor loaders, the leaf metrics,
+    the configs and the dense LM are held to the port's import rule."""
+    files = set(_port_files())
+    twins = [REPO / "examples" / f"torch_{name}.py"
+             for name in ("quickstart", "adaptive_workload", "knn_serving")]
+    mods = [PORT / "core" / f"{name}.py" for name in ("baselines", "hilbert", "metrics")]
+    mods += [PORT / "models" / f"{name}.py"
+             for name in ("layers", "attention", "transformer", "model", "convert")]
+    mods += [PORT / "configs" / "base.py", PORT / "serve" / "engine.py"]
+    for path in twins + mods:
         assert path in files and path.exists()
 
 
@@ -86,7 +101,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.serve.faults, repro_torch.analysis.runtime, "
         "repro_torch.core.streaming, repro_torch.serve.journal, "
         "repro_torch.serve.frontend, repro_torch.core.distributed, "
-        "repro_torch.core.mesh\n"
+        "repro_torch.core.mesh, repro_torch.core.baselines, repro_torch.core.hilbert, "
+        "repro_torch.core.metrics, repro_torch.configs, repro_torch.models, "
+        "repro_torch.models.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
