@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main, serving, streaming, sharded, collective,
-first-generation, retrieval, competitor-loader and LM serving paths on one
-NVIDIA GPU and check them.
+first-generation, retrieval, competitor-loader and LM serving paths (every
+family of the repo's model configs) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -216,6 +216,31 @@ Phases (any failure exits non-zero; nothing is caught):
    allocation.  The float32 checks are repeated on a gemma3-style config
    at d_model 1024 (five local layers of window 1024 and a global one,
    then two remainder local layers) with a 512-token prompt.
+9. The LM's other families, after phase 8, at their published widths
+   (``FAMILIES``): rwkv6-3b (32 layers), jamba-v0.1-52b cut to one
+   superblock (8 layers: 1 attention, 7 Mamba, 4 MoE FFNs of 16
+   experts), qwen3-moe-235b-a22b cut to 2 layers (128 experts, top 8),
+   arctic-480b cut to 1 layer (128 experts, dense residual),
+   seamless-m4t-medium (12 + 12 layers, frames) and internvl2-2b (24
+   layers, 256 patches), each drawn from a seeded ``torch.Generator`` on
+   the card and freed before the next.  In float32 (capacity factor
+   E / top_k, at least 8: no dropped assignment, asserted; arctic's 56
+   GB of float32 weights have no check) the prefill of a 2 x 120 prompt (seamless: 56 tokens
+   beside 2 x 256 frames; internvl2: after 2 x 256 patches) and 8 decode
+   steps must be within ``LM_TOL`` of one full forward, and greedy
+   generation of 16 tokens must equal teacher forcing.  A random
+   32-layer RWKV6 amplifies float32 rounding past ``LM_TOL``, so its
+   checks run on the same weights in float64, with a 2 x 500 prompt
+   too, no multiple of its chunk (ROADMAP C.9); its float32 model must
+   be within ``WITNESS_TOL`` of the float64 forward at both lengths, and
+   its bfloat16 model beyond it.  Each MoE config's float32 router picks the
+   same experts as a float64 recomputation on the card wherever the k-th
+   and next gate are 1e-6 apart.  Then the shipped config in bfloat16:
+   ``generate`` (``prefill``/``decode_step`` for seamless and internvl2)
+   of 4 x 512 -> 32 tokens (seamless: frames 4 x 512, prompt 64;
+   internvl2: 256 patches and 256 tokens), timed twice: prefill ms,
+   decode ms per step, tokens per second, peak allocation and the
+   dropped assignments per MoE layer.
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
@@ -225,7 +250,8 @@ microbatch of phase 3h's ``shards=4`` server and one insert of 2048
 points with its sharded sync, of the fused window batch's
 frontier alone (``box_hits`` and the mask operations around it), of
 phase 3b's window and k-NN batch per tree, of phase 8's bfloat16 prefill
-and one decode step, and of the retrieval ``knn``,
+and one decode step, of one bfloat16 decode step per phase-9 config, and
+of the retrieval ``knn``,
 ``window_count`` and ``knn_kernel`` batches (device busy time, idle
 share, time by kernel name).  The line before the last is one JSON
 object listing the kernels; the last line is ``{"ok": true, "device":
@@ -2649,32 +2675,88 @@ LM_LOCAL_ARCH = "gemma3-27b"    # cut to one superblock and two remainder layers
 # forward differ by the order of float32 sums (tests/test_decode.py's
 # decode tolerance)
 LM_TOL = 2e-3
+SERVING_RUNS = 2   # timed generations of each model; the last is the one reported
 
 
-def lm_checks(tag, lm, prompt_len, n_decode, n_new, torch, rng):
-    """Float32 checks of one model: prefill of a 2 x ``prompt_len`` prompt
-    and ``n_decode`` decode steps against one full forward over the
-    ``prompt_len + n_decode`` tokens, and ``generate`` of ``n_new`` tokens
+def lm_inputs(cfg, batch, torch, rng, device, n_extra=256):
+    """The stub inputs a config needs beside its tokens: ``frames`` of
+    ``n_extra`` positions for an encoder-decoder, ``patch_embeds`` of
+    ``n_extra`` patches for the VLM (normal draws, on the card, in the
+    config's dtype), and the number of patch positions."""
+    extra = {}
+    if cfg.encoder_layers:
+        extra["frames"] = rng.normal(0, 1, (batch, n_extra, cfg.d_model))
+    if cfg.frontend == "patch_stub":
+        extra["patch_embeds"] = rng.normal(0, 1, (batch, n_extra, cfg.d_model))
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float64": torch.float64}[cfg.dtype]
+    extra = {k: torch.from_numpy(v).to(device=device, dtype=dtype) for k, v in extra.items()}
+    return extra, (n_extra if cfg.frontend == "patch_stub" else 0)
+
+
+def greedy(lm, prompt, n_new, extra, n_patch, torch):
+    """Greedy decoding of ``n_new`` tokens: ``LMServer.generate`` for the
+    token-only families, and for those that take frames or patches
+    (``extra``) the same loop through ``LM.prefill``/``decode_step``.
+    Returns ``(B, n_new)`` token ids."""
+    from repro_torch.serve import LMServer
+
+    if not extra:
+        return LMServer(lm).generate(prompt, n_new)
+    b, s = prompt.shape
+    lg, cache = lm.prefill(prompt, n_patch + s + n_new, **extra)
+    out = [lg[:, -1].argmax(dim=-1)]
+    for t in range(n_new - 1):
+        pos = torch.full((b,), n_patch + s + t, dtype=torch.int64, device=lm.device)
+        lg, cache = lm.decode_step(out[-1][:, None], cache, pos)
+        out.append(lg[:, 0].argmax(dim=-1))
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
+def prefill_decode(lm, toks, prompt_len, extra, n_patch, torch):
+    """The logits of a prefill over ``toks[:, :prompt_len]`` (after
+    ``n_patch`` patches, or beside an encoder's frames: ``extra``) and of
+    one decode step for each later token: ``(B, S - prompt_len + 1, V)``,
+    the positions ``prompt_len - 1`` onwards."""
+    b, s = toks.shape
+    last, cache = lm.prefill(toks[:, :prompt_len], cache_len=n_patch + s, **extra)
+    out = [last[:, -1]]
+    for t in range(prompt_len, s):
+        lg, cache = lm.decode_step(toks[:, t:t + 1], cache,
+                                   torch.full((b,), n_patch + t, device=toks.device))
+        out.append(lg[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def lm_checks(tag, lm, prompt_len, n_decode, n_new, torch, rng, extra=None, n_patch=0):
+    """Checks of one model in its dtype: prefill of a 2 x ``prompt_len``
+    prompt (after ``n_patch`` patches, or beside an encoder's frames:
+    ``extra``) and ``n_decode`` decode steps against one full forward
+    over the ``prompt_len + n_decode`` tokens, within ``LM_TOL``, and
+    greedy generation of ``n_new`` tokens (:func:`greedy`; none if 0)
     against the argmax of one full forward over the prompt and the
     generated tokens (teacher forcing; a position may differ only where
     that forward's top two logits are within ``LM_TOL``)."""
-    from repro_torch.serve import LMServer
-
     cfg = lm.cfg
+    extra = extra or {}
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len + n_decode))).to(
         lm.device)
-    full = lm(toks)
-    last, cache = lm.prefill(toks[:, :prompt_len], cache_len=prompt_len + n_decode)
-    errs = [float((last[:, -1] - full[:, prompt_len - 1]).abs().max())]
-    for t in range(prompt_len, prompt_len + n_decode):
-        lg, cache = lm.decode_step(toks[:, t:t + 1], cache,
-                                   torch.full((2,), t, device=toks.device))
-        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
-    del full, cache
+    full = lm(toks, **extra)[:, n_patch + prompt_len - 1:]
+    got = prefill_decode(lm, toks, prompt_len, extra, n_patch, torch)
+    errs = (got - full).abs().amax(dim=(0, 2)).tolist()
+    del full, got
+    out = {"tol": LM_TOL, "prefill_decode_max_abs_err": max(errs), "errs": errs}
+    if not max(errs) <= LM_TOL:
+        raise AssertionError(f"[{tag}] prefill + decode differ from the full forward by "
+                             f"{max(errs)} > {LM_TOL} ({out})")
+    if not n_new:
+        log(f"[{tag}] {cfg.dtype}: prefill {prompt_len} + {n_decode} decode steps against "
+            f"one full forward: max abs err {max(errs):.3e}")
+        return out
     prompt = toks[:, :prompt_len].cpu().numpy()
-    gen = LMServer(lm).generate(prompt, n_new)
+    gen = greedy(lm, prompt, n_new, extra, n_patch, torch)
     seq = torch.from_numpy(np.concatenate([prompt, gen], axis=1)).to(lm.device)
-    forced = lm(seq[:, :-1])[:, prompt_len - 1:]
+    forced = lm(seq[:, :-1], **extra)[:, n_patch + prompt_len - 1:]
     want = forced.argmax(dim=-1).cpu().numpy()
     near = 0
     for b, i in zip(*np.nonzero(gen != want)):
@@ -2683,14 +2765,10 @@ def lm_checks(tag, lm, prompt_len, n_decode, n_new, torch, rng):
             raise AssertionError(f"[{tag}] generate's token {i} of row {b} is {gen[b, i]}, "
                                  f"the full forward's argmax {want[b, i]} ({gap} higher)")
         near += 1
-    out = {"prefill_decode_max_abs_err": max(errs), "errs": errs, "tol": LM_TOL,
-           "generated": gen.tolist(), "near_ties": near}
-    if max(errs) > LM_TOL:
-        raise AssertionError(f"[{tag}] prefill + decode differ from the full forward by "
-                             f"{max(errs)} > {LM_TOL}")
-    log(f"[{tag}] f32: prefill {prompt_len} + {n_decode} decode steps against one full "
-        f"forward: max abs err {max(errs):.3e} (tol {LM_TOL}); generate of {n_new} tokens "
-        f"equals teacher forcing ({near} near ties)")
+    out.update(generated=gen.tolist(), near_ties=near)
+    log(f"[{tag}] {cfg.dtype}: prefill {prompt_len} + {n_decode} decode steps against one "
+        f"full forward: max abs err {max(errs):.3e}; generate of {n_new} tokens equals "
+        f"teacher forcing ({near} near ties)")
     return out
 
 
@@ -2707,11 +2785,9 @@ def lm_path(tag, torch, smi, device="cuda", profile=False):
     with a 512-token prompt, shorter than the window (ROADMAP C.8).
     ``profile`` adds a trace of one bf16 prefill and one decode step."""
     import dataclasses
-    import statistics
 
     from repro_torch.configs import get_config
     from repro_torch.models import LM
-    from repro_torch.serve import LMServer
 
     rng = np.random.default_rng(21)
     cfg = get_config(LM_ARCH)
@@ -2727,42 +2803,9 @@ def lm_path(tag, torch, smi, device="cuda", profile=False):
     torch.cuda.empty_cache()
 
     lm = LM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
-    srv = LMServer(lm)
-    events = {"prefill": [], "decode": []}
-
-    def timed(name, fn):
-        def call(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = fn(*a, **kw)
-            end.record()
-            events[name].append((start, end))
-            return res
-        return call
-
-    lm.prefill, lm.decode_step = timed("prefill", lm.prefill), timed("decode", lm.decode_step)
     batch, prompt_len, n_new = 4, 512, 64
     prompt = rng.integers(0, cfg.vocab, (batch, prompt_len))
-    runs = []
-    for _ in range(2):
-        for v in events.values():
-            v.clear()
-        torch.cuda.reset_peak_memory_stats()
-        start_bytes = torch.cuda.memory_allocated()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gen = srv.generate(prompt, n_new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
-        decode_ms = [a.elapsed_time(b) for a, b in events["decode"]]
-        runs.append({"wall_s": wall, "prefill_ms": prefill_ms,
-                     "decode_ms_median": statistics.median(decode_ms),
-                     "decode_ms_max": max(decode_ms), "decode_steps": len(decode_ms),
-                     "tokens_per_s": batch * n_new / wall,
-                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                     "allocated_at_start": start_bytes})
+    gen, runs = timed_serving(lm, prompt, n_new, {}, 0, torch)
     if gen.shape != (batch, n_new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
         raise AssertionError(f"[{tag}] bf16 generate gave {gen.shape} tokens out of range")
     out["bf16_generate"] = {"batch": batch, "prompt": prompt_len, "new": n_new,
@@ -2776,7 +2819,7 @@ def lm_path(tag, torch, smi, device="cuda", profile=False):
             "decode_step": lambda: lm.decode_step(last, cache, pos)}, torch)
         log(f"[{tag}] profile: {out['profile']}")
     log(f"[{tag}] {LM_ARCH} bf16 generate {batch} x {prompt_len} -> {n_new}: {runs}")
-    del lm, srv
+    del lm
     torch.cuda.empty_cache()
 
     local = dataclasses.replace(
@@ -2793,6 +2836,276 @@ def lm_path(tag, torch, smi, device="cuda", profile=False):
     del lm
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: the LM's other families served on the card
+# --------------------------------------------------------------------------
+# (config, layers on the card (None: all), float32 checks: prompt, decode
+# steps, new tokens, frames or patches; bfloat16 run: batch, prompt, new
+# tokens, frames or patches).  Widths are the published ones; depth is cut
+# where the weights do not fit one card: jamba to one superblock (8 layers:
+# 1 attention, 7 Mamba, 4 MoE FFNs of 16 experts), qwen3-moe to 2 layers
+# of 128 experts, arctic to 1 layer (128 experts, dense residual; its
+# float32 weights would be 56 GB, so it has no float32 check).
+FAMILIES = (
+    ("rwkv6-3b", None, (120, 8, 16, 0), (4, 512, 32, 0)),
+    ("jamba-v0.1-52b", 8, (120, 8, 16, 0), (4, 512, 32, 0)),
+    ("qwen3-moe-235b-a22b", 2, (120, 8, 16, 0), (4, 512, 32, 0)),
+    ("arctic-480b", 1, None, (4, 512, 32, 0)),
+    ("seamless-m4t-medium", None, (56, 8, 16, 256), (4, 64, 32, 512)),
+    ("internvl2-2b", None, (120, 8, 16, 256), (4, 256, 32, 256)),
+)
+RWKV_LONG_PROMPT = 500       # no multiple of la_chunk = 64 (ROADMAP C.9)
+# A random 32-layer RWKV6 amplifies rounding: its float32 prefill + decode
+# and its float32 full forward differ by more than LM_TOL, and no float32
+# order of sums holds LM_TOL there.  So its checks run on the same weights
+# in float64 (the same path; every float32 internal widens), at LM_TOL, and
+# the float32 model is held to that float64 witness at WITNESS_TOL, which
+# a bfloat16 run of the same weights must exceed.  On an H100 the float32
+# model came within 6.7e-2 and the bfloat16 one 5.3 away (PERF.md, PR 22).
+F64_CHECKS = ("rwkv6-3b",)
+WITNESS_TOL = 0.15
+GATE_GAP = 1e-6              # experts compared where the k-th and next gate differ more
+
+
+def check_capacity(cfg):
+    """The capacity factor of the checks: ``E / top_k``, at least
+    test_decode.py's 8, gives every expert a slot for every token of a
+    chunk, so no assignment can drop (a drop makes a prefill differ from a
+    full forward by design).  At 8, qwen3-moe's 128 experts of top 8 give
+    an expert slots for half the tokens, and its random router sent more
+    than half of a 256-token forward to one expert (34 assignments of
+    layer 1 dropped on an H100)."""
+    return max(8.0, cfg.n_experts / cfg.moe_top_k) if cfg.n_experts else cfg.capacity_factor
+
+
+def moe_layers(lm):
+    return [(li, layer.ffn) for li, layer in enumerate(lm.layers) if layer.ffn_kind == "moe"]
+
+
+def routing_check(tag, moe, xf, torch):
+    """The float32 router's top-k on the card against a float64
+    recomputation of the same gates on the card: the chosen experts (as
+    sets) must be equal wherever the k-th and (k+1)-th float64 gates
+    differ by more than ``GATE_GAP``."""
+    from repro_torch.kernels.ref import top_k
+
+    k = moe.cfg.moe_top_k
+    _, e32 = moe.route(xf)
+    g64 = torch.softmax(xf.double() @ moe.router.double(), dim=-1)
+    v64, e64 = top_k(g64, min(k + 1, g64.shape[1]))
+    clear = ((v64[:, k - 1] - v64[:, k]) > GATE_GAP if k < g64.shape[1]
+             else torch.ones_like(v64[:, 0], dtype=torch.bool))
+    same = (e32.sort(dim=-1).values == e64[:, :k].sort(dim=-1).values).all(dim=-1)
+    bad = int((clear & ~same).sum())
+    out = {"tokens": xf.shape[0], "clear": int(clear.sum()), "differ_where_clear": bad,
+           "differ_anywhere": int((~same).sum()),
+           "order_equal": int((e32 == e64[:, :k]).all(dim=-1).sum())}
+    if bad:
+        raise AssertionError(f"[{tag}] {bad} tokens route to other experts than float64's "
+                             f"where the gates are {GATE_GAP} apart: {out}")
+    log(f"[{tag}] routing on the card against float64: {out}")
+    return out
+
+
+def capture_moe_input(moe):
+    """Keep the first input a MoE layer sees, as ``(T, D)`` rows."""
+    seen = []
+
+    def hook(_mod, args):
+        if not seen:
+            seen.append(args[0].reshape(-1, args[0].shape[-1]).clone())
+    return seen, moe.register_forward_pre_hook(hook)
+
+
+def timed_serving(lm, prompt, n_new, extra, n_patch, torch):
+    """:func:`greedy` run ``SERVING_RUNS`` times, prefill and each decode
+    step timed with CUDA events: per run,
+    the prefill ms, the median and largest decode ms per step, tokens per
+    second over the host wall and the peak allocation."""
+    import statistics
+
+    events = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            events[name].append((start, end))
+            return res
+        return call
+
+    lm.prefill, lm.decode_step = timed("prefill", lm.prefill), timed("decode", lm.decode_step)
+    out = []
+    try:
+        for _ in range(SERVING_RUNS):
+            for v in events.values():
+                v.clear()
+            for _, moe in moe_layers(lm):
+                moe.dropped.zero_()
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = greedy(lm, prompt, n_new, extra, n_patch, torch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            decode_ms = [a.elapsed_time(b) for a, b in events["decode"]]
+            out.append({
+                "wall_s": wall,
+                "prefill_ms": events["prefill"][0][0].elapsed_time(events["prefill"][0][1]),
+                "decode_ms_median": statistics.median(decode_ms),
+                "decode_ms_max": max(decode_ms), "decode_steps": len(decode_ms),
+                "tokens_per_s": prompt.shape[0] * n_new / wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "allocated_at_start": start_bytes,
+                "dropped_per_moe_layer": {li: int(moe.dropped) for li, moe in moe_layers(lm)}})
+    finally:
+        del lm.prefill, lm.decode_step    # the methods again (no cycle through lm)
+    return gen, out
+
+
+def families_path(tag, torch, smi, device="cuda", profile=False):
+    """Phase 9: the LM's other families (RWKV6, the Mamba hybrid, the two
+    MoE configs, the encoder-decoder and the VLM) at their published
+    widths, depths as ``FAMILIES`` cuts them, weights drawn from a seeded
+    ``torch.Generator`` on the card, one config after another
+    (:func:`family_run`; every tensor of one is freed before the next)."""
+    import gc
+
+    rng = np.random.default_rng(22)
+    out = {"nvidia_smi": smi}
+    gc.collect()               # earlier phases' models, held by reference cycles
+    torch.cuda.empty_cache()
+    for seed, (arch, layers, checks, run) in enumerate(FAMILIES):
+        out[arch] = family_run(f"{tag} {arch}", arch, layers, checks, run, seed, rng, torch,
+                               device, profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def witness_check(tag, lm, toks, want, prompt_len, torch, control=False):
+    """Prefill + decode of ``lm`` over ``toks`` (:func:`prefill_decode`)
+    against ``want``, a float64 full forward's logits at the same
+    positions: within ``WITNESS_TOL``, or for a ``control`` (bfloat16)
+    beyond it."""
+    got = prefill_decode(lm, toks, prompt_len, {}, 0, torch)
+    err = float((got.double() - want).abs().max())
+    out = {"prompt": prompt_len, "decode_steps": toks.shape[1] - prompt_len,
+           "max_abs_err": err, "tol": WITNESS_TOL}
+    if control != (not err <= WITNESS_TOL):
+        raise AssertionError(f"[{tag}] {lm.cfg.dtype} prefill + decode against the float64 "
+                             f"forward: {out} ({'control ' if control else ''}limit "
+                             f"{WITNESS_TOL})")
+    log(f"[{tag}] {lm.cfg.dtype} prefill {prompt_len} + {out['decode_steps']} decode steps "
+        f"against the float64 forward: max abs err {err:.3e} "
+        f"({'above' if control else 'within'} {WITNESS_TOL})")
+    return out
+
+
+def family_run(name, arch, layers, checks, run, seed, rng, torch, device, profile):
+    """One config of phase 9: checks in float32 (:func:`lm_checks`;
+    :func:`check_capacity`, so that no assignment drops, which is asserted),
+    in float64 for ``F64_CHECKS`` (also a 2 x 500 prompt, no multiple of
+    the chunk) with the float32 and bfloat16 models held to that witness
+    (:func:`witness_check`), the float32 router against float64 for the
+    MoE configs (:func:`routing_check`; arctic's on its bf16 model), then
+    the shipped config in bfloat16, timed (:func:`timed_serving`), with
+    the dropped assignments per MoE layer.  ``profile`` adds a trace of
+    one bf16 decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "kinds": [f"{k}/{f}" for k, f in
+                     ((cfg.layer_kinds()[i % cfg.superblock], cfg.ffn_kinds()[i % cfg.superblock])
+                      for i in range(cfg.n_layers))]}
+    witness = []
+    if checks is not None:
+        dtype = "float64" if arch in F64_CHECKS else "float32"
+        chk = dataclasses.replace(cfg, dtype=dtype, capacity_factor=check_capacity(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(chk, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+        rec["params"] = sum(p.numel() for p in lm.parameters())
+        prompt_len, n_decode, n_new, n_extra = checks
+        extra, n_patch = lm_inputs(chk, 2, torch, rng, device, n_extra)
+        moes = moe_layers(lm)
+        if moes:
+            seen, hook = capture_moe_input(moes[0][1])
+        rec["checks"] = {"dtype": dtype, **lm_checks(f"{name} {dtype}", lm, prompt_len,
+                                                      n_decode, n_new, torch, rng, extra=extra,
+                                                      n_patch=n_patch)}
+        if moes:
+            hook.remove()
+            rec["checks"]["dropped"] = {li: int(m.dropped) for li, m in moes}
+            if any(rec["checks"]["dropped"].values()):
+                raise AssertionError(f"[{name}] the f32 checks dropped assignments: "
+                                     f"{rec['checks']['dropped']}")
+            rec["routing"] = routing_check(name, moes[0][1], seen[0], torch)
+        if dtype == "float64":
+            rec["checks_long"] = lm_checks(f"{name} {dtype} long", lm, RWKV_LONG_PROMPT, 8, 0,
+                                           torch, rng)
+            for plen in (prompt_len, RWKV_LONG_PROMPT):
+                toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, plen + n_decode))).to(
+                    lm.device)
+                witness.append((toks, lm(toks)[:, plen - 1:].clone(), plen))
+        rec["checks_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del lm, extra, moes
+        torch.cuda.empty_cache()
+        if witness:
+            lm = LM(dataclasses.replace(cfg, dtype="float32"), device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+            rec["f32_witness"] = [witness_check(name, lm, toks, want, plen, torch)
+                                  for toks, want, plen in witness]
+            del lm
+            torch.cuda.empty_cache()
+    batch, prompt_len, n_new, n_extra = run
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    rec["bf16_init_s"] = time.perf_counter() - t0
+    rec["bf16_init_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["bf16_params"] = sum(p.numel() for p in lm.parameters())
+    rec["bf16_weight_bytes"] = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if witness:
+        rec["bf16_control"] = [witness_check(name, lm, toks, want, plen, torch, control=True)
+                               for toks, want, plen in witness]
+        del witness
+    extra, n_patch = lm_inputs(cfg, batch, torch, rng, device, n_extra)
+    prompt = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    moes = moe_layers(lm)
+    if moes and checks is None:
+        seen, hook = capture_moe_input(moes[0][1])
+    gen, runs = timed_serving(lm, prompt, n_new, extra, n_patch, torch)
+    if moes and checks is None:
+        hook.remove()
+        rec["routing"] = routing_check(name, moes[0][1], seen[0], torch)
+    if gen.shape != (batch, n_new) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"[{name}] bf16 generation gave {gen.shape} tokens out of range")
+    rec["bf16"] = {"batch": batch, "prompt": prompt_len, "new": n_new,
+                   "frames_or_patches": n_extra, "runs": runs}
+    if profile:
+        _, cache = lm.prefill(prompt, n_patch + prompt_len + 1, **extra)
+        last = torch.from_numpy(gen[:, :1]).to(lm.device)
+        pos = torch.full((batch,), n_patch + prompt_len, device=lm.device)
+        rec["profile"] = profile_batches(
+            {"decode_step": lambda: lm.decode_step(last, cache, pos)}, torch)
+    log(f"[{name}] {rec['bf16_params']:,} bf16 parameters "
+        f"({rec['bf16_weight_bytes'] / 1e9:.2f} GB; init peak "
+        f"{rec['bf16_init_peak_bytes'] / 1e9:.2f} GB); {batch} x {prompt_len} -> {n_new}: "
+        f"{runs[-1]}" + (f"; decode step profile {rec['profile']}" if profile else ""))
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -2890,6 +3203,7 @@ def main(argv=None) -> int:
     del calls2, scalls2, stcalls2, shcalls2, ccalls2, ucalls2, wcalls2, rcalls2, cmcalls2
     del calls5, ucalls5, wcalls5, rcalls5
     results["lm"] = lm_path("lm", torch, smi, profile=args.profile)
+    results["lm_families"] = families_path("families", torch, smi, profile=args.profile)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

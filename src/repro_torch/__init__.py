@@ -18,8 +18,9 @@ the paper's NumPy engine and oracles, its competitor loaders
 the Table-1 leaf metrics (``leaf_stats``); the brute-force count
 ``kernels.ops.window_count``; the retrieval path: the balanced
 ``GridIndex`` built on the device, its routing, window counts and k-NN,
-served by ``RetrievalServer``; and the dense LM of the repo's model
-configs (``configs``, ``models.LM``) with greedy generation
+served by ``RetrievalServer``; and the LM of every model config of the
+repo (``configs``, ``models.LM``: dense, MoE, RWKV6, the Mamba hybrid,
+the encoder-decoder, the VLM's patch front end) with greedy generation
 (``LMServer``).  Ten hand-written Hopper kernels carry the index paths.
 State carried across from the JAX package: ``index_from_arrays``,
 ``table_from_arrays``, ``grid_index_from_arrays`` and, for the LM,

@@ -1,5 +1,6 @@
-"""The dense LM of the port (``LM``: logits, prefill, decode) and the
-weights carried across from the JAX package (``params_from_arrays``)."""
+"""The LM of the port (``LM``: logits, prefill, decode, for every family
+of ``configs/``) and the weights carried across from the JAX package
+(``params_from_arrays``)."""
 from .convert import params_from_arrays
 from .model import LM
 

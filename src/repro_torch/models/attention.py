@@ -1,5 +1,5 @@
-"""Attention of the dense LM: GQA with RoPE, qk-norm and sliding windows
-(the port of the JAX package's ``models/attention.py``).
+"""Attention of the LM: GQA with RoPE, qk-norm, sliding windows and
+cross-attention (the port of the JAX package's ``models/attention.py``).
 
 Prefill and training run q-chunked (``cfg.chunk_q``): the score matrix is
 built one query block at a time, so a long prefill never holds an S x S
@@ -9,9 +9,12 @@ lever of its XLA compile, and the port always masks.)
 
 Decode attends one token against a cache: local layers keep a ring of
 ``min(window, cache_len)`` positions (slot ``pos % S_cache``), global
-layers the whole context.  Scores and softmax run in float32, the
-weights cast back to the activation dtype, as in the reference.  This is
-plain PyTorch: the reference's attention is jnp, not a Pallas kernel.
+layers the whole context.  An encoder's self-attention is not causal;
+a decoder's cross-attention attends every encoder position of keys and
+values computed once (``encode_kv``), without rotary embedding.  Scores
+and softmax run in float32, the weights cast back to the activation
+dtype, as in the reference.  This is plain PyTorch: the reference's
+attention is jnp, not a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import math
 import torch
 from torch import nn
 
-from .layers import Init, rms_norm, rope
+from .layers import Init, rms_norm, rope, upcast
 
 NEG = -2.0e38
 
@@ -51,10 +54,10 @@ class Attention(nn.Module):
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
-    def forward(self, x, *, window=0):
-        """Full-sequence (train/prefill) causal attention, q-chunked.
-        Returns ``(out (B, S, D), k, v)`` so that prefill can keep the
-        cache."""
+    def forward(self, x, *, window=0, causal=True):
+        """Full-sequence (train/prefill) attention, q-chunked, causal
+        unless ``causal=False`` (an encoder).  Returns ``(out (B, S, D), k,
+        v)`` so that prefill can keep the cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         pos = torch.arange(s, device=x.device)
@@ -65,7 +68,9 @@ class Attention(nn.Module):
         outs = []
         for start in range(0, s, cq):
             pos_q = pos[start:start + cq]
-            mask = pos_q[None, :, None] >= pos[None, None, :]
+            mask = torch.ones(1, pos_q.shape[0], s, dtype=torch.bool, device=x.device)
+            if causal:
+                mask &= pos_q[None, :, None] >= pos[None, None, :]
             if window:
                 mask &= pos_q[None, :, None] - pos[None, None, :] < window
             outs.append(sdpa_block(q[:, start:start + cq], k, v, mask))
@@ -94,6 +99,29 @@ class Attention(nn.Module):
         out = sdpa_block(q, cache_k, cache_v, mask[:, None, :])
         return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ self.wo
 
+    def encode_kv(self, enc_out):
+        """Cross-attention keys and values ``(B, S_enc, Hk, hd)`` of the
+        encoder's output: k-norm when ``qk_norm``, no rotary embedding."""
+        cfg = self.cfg
+        b, s, _ = enc_out.shape
+        k = (enc_out @ self.wk).view(b, s, cfg.n_kv_heads, cfg.hd)
+        v = (enc_out @ self.wv).view(b, s, cfg.n_kv_heads, cfg.hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        return k, v
+
+    def cross(self, x, enc_k, enc_v):
+        """Cross-attention of ``(B, Sq, D)`` against the encoder's keys and
+        values: q-norm when ``qk_norm``, no rotary embedding, no mask."""
+        cfg = self.cfg
+        b, sq, _ = x.shape
+        q = (x @ self.wq).view(b, sq, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+        mask = torch.ones(1, sq, enc_k.shape[1], dtype=torch.bool, device=x.device)
+        out = sdpa_block(q, enc_k, enc_v, mask)
+        return out.reshape(b, sq, cfg.n_heads * cfg.hd) @ self.wo
+
 
 def sdpa_block(q, k, v, mask):
     """``(B, cq, H, hd)`` x ``(B, Skv, Hk, hd)`` -> ``(B, cq, H, hd)``.  KV
@@ -106,7 +134,7 @@ def sdpa_block(q, k, v, mask):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", upcast(q), upcast(k)) / math.sqrt(hd)
     scores = scores.masked_fill(~mask[:, None], NEG)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)

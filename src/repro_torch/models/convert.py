@@ -6,9 +6,11 @@ The reference stacks the layers of its scanned superblocks along a
 leading ``n_blocks`` axis (``tree["blocks"]["l{i}"]``) and keeps the
 remainder layers apart (``tree["rem{j}"]``); the port holds one flat list
 of layers, so layer ``b * superblock + i`` is row ``b`` of block position
-``i`` and layer ``n_blocks * superblock + j`` is ``rem{j}``.  Weights keep
-the reference's ``(in, out)`` layout.  No module of that package is
-imported.
+``i`` and layer ``n_blocks * superblock + j`` is ``rem{j}``.  The
+encoder's blocks are stacked along ``encoder_layers`` rows
+(``tree["encoder"]``, row ``j`` the port's ``encoder.{j}``), and the VLM's
+``patch_proj`` is one matrix.  Weights keep the reference's ``(in, out)``
+layout, experts ``(E, in, out)``.  No module of that package is imported.
 """
 from __future__ import annotations
 
@@ -46,10 +48,21 @@ def params_from_arrays(cfg, tree: Mapping) -> dict:
     for j in range(cfg.remainder_layers):
         for name, value in _flat(tree[f"rem{j}"]):
             state[f"layers.{n_blocks * sb + j}.{name}"] = _tensor(value)
-    extra = sorted(set(tree) - {"embed", "blocks"}
-                   - {f"rem{j}" for j in range(cfg.remainder_layers)})
+    known = {"embed", "blocks"} | {f"rem{j}" for j in range(cfg.remainder_layers)}
+    if cfg.encoder_layers:
+        known.add("encoder")
+        for name, value in _flat(tree["encoder"]):
+            if value.shape[0] != cfg.encoder_layers:
+                raise ValueError(f"encoder.{name}: {value.shape[0]} rows, expected "
+                                 f"encoder_layers = {cfg.encoder_layers}")
+            for j in range(cfg.encoder_layers):
+                state[f"encoder.{j}.{name}"] = _tensor(value[j])
+    if cfg.frontend == "patch_stub":
+        known.add("patch_proj")
+        state["patch_proj"] = _tensor(tree["patch_proj"])
+    extra = sorted(set(tree) - known)
     if extra:
-        raise ValueError(f"parameters the dense LM does not have: {extra}")
+        raise ValueError(f"parameters {cfg.name} does not have: {extra}")
     return state
 
 

@@ -1,4 +1,4 @@
-"""Basic layers of the dense LM: RMS norm, rotary embedding, the SwiGLU
+"""Basic layers of the LM: RMS norm, rotary embedding, the SwiGLU
 MLP, the token embedding and the output logits (the port of the JAX
 package's ``models/layers.py``).
 
@@ -6,7 +6,8 @@ Weights keep the JAX package's layout, ``(in, out)``, and every layer
 computes ``x @ w`` as it does, so a parameter tree carried across
 (``models/convert.py``) needs no transpose.  Dtypes follow the
 reference's promotions: norms and rotary angles run in float32 and cast
-back to the activation dtype.
+back to the activation dtype (a float64 model runs them in float64:
+:func:`upcast`).
 """
 from __future__ import annotations
 
@@ -18,18 +19,25 @@ from torch import nn
 PAD_LOGIT = -1e30
 
 
+def upcast(x):
+    """``x`` in float32, the dtype of the reference's internals, or as it
+    is if it is wider (a float64 model, a witness for float32 checks)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x, w, eps: float = 1e-6):
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = upcast(x).square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 def rope(x, positions, theta: float = 1e4):
     """Rotary embedding over the last dim of ``(..., seq, heads, hd)``;
-    ``positions`` is ``(..., seq)``.  Angles in float32, the result cast
-    back to ``x``'s dtype."""
+    ``positions`` is ``(..., seq)``.  Angles in float32 (float64 for a
+    float64 ``x``), the result cast back to ``x``'s dtype."""
     half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    ang = positions[..., :, None].float() * freqs          # (..., S, half)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    freqs = theta ** (-torch.arange(0, half, dtype=wide, device=x.device) / half)
+    ang = positions[..., :, None].to(wide) * freqs         # (..., S, half)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -44,7 +52,9 @@ def swiglu(x, w1, w3, w2):
 class Init:
     """Draws every parameter of a model from one seeded generator on one
     device, in the order the model asks for them: normal draws scaled by
-    ``fan_in ** -0.5`` (or ``scale``), or ones; ``empty=True`` allocates
+    ``fan_in ** -0.5`` (or ``scale``), drawn in float32 whatever the dtype
+    (one seed gives the same weights, rounded, in every dtype), ones or
+    zeros; ``empty=True`` allocates
     without drawing (for weights that are loaded next)."""
 
     def __init__(self, generator: torch.Generator | None, device, dtype, empty=False):
@@ -63,6 +73,10 @@ class Init:
 
     def ones(self, *shape) -> nn.Parameter:
         return nn.Parameter(torch.ones(shape, dtype=self.dtype, device=self.device),
+                            requires_grad=False)
+
+    def zeros(self, *shape) -> nn.Parameter:
+        return nn.Parameter(torch.zeros(shape, dtype=self.dtype, device=self.device),
                             requires_grad=False)
 
 

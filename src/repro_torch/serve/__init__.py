@@ -1,4 +1,4 @@
-"""Serving layer of the PyTorch port: greedy generation over the dense LM
+"""Serving layer of the PyTorch port: greedy generation over the LM
 (``LMServer``), window and k-NN serving over a
 ``NodeTable``, static, adaptive over AMBI or streaming
 (``DeviceQueryServer``), with its resilience plane, fault injection,

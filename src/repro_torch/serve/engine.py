@@ -79,8 +79,12 @@ from .resilience import (
 
 
 class LMServer:
-    """Greedy generation over a dense :class:`~repro_torch.models.LM`, on
-    the model's device."""
+    """Greedy generation over an :class:`~repro_torch.models.LM` of a
+    token-only family (dense, MoE, RWKV6, the Mamba hybrid), on the
+    model's device.  Every cache, attention or recurrent, is allocated at
+    its final size by the prefill and nothing is grown afterwards.  Like
+    the reference's, ``generate`` takes tokens only: an encoder-decoder or
+    a VLM generates through ``LM.prefill``/``decode_step``."""
 
     def __init__(self, lm):
         self.lm = lm
@@ -89,6 +93,10 @@ class LMServer:
         """Greedy generation for a ``(B, S)`` prompt batch: ``(B, max_new)``
         token ids.  ``cache_len`` (``S + max_new`` unless given) must hold
         every position a decode step writes, ``S + max_new - 1``."""
+        cfg = self.lm.cfg
+        if cfg.encoder_layers or cfg.frontend == "patch_stub":
+            raise ValueError(f"{cfg.name} takes frames or patches: generate through "
+                             f"LM.prefill and LM.decode_step")
         tokens = torch.as_tensor(tokens, device=self.lm.device)
         b, s = tokens.shape
         cache_len = cache_len or (s + max_new)

@@ -1081,6 +1081,60 @@ def test_lm_generate_on_the_card_matches_the_cpu_port(cuda, local):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("family", ["rwkv", "hybrid", "encdec"])
+def test_lm_families_on_the_card_match_the_cpu_port(cuda, family):
+    """Reduced RWKV6, Mamba/attention/MoE hybrid and encoder-decoder
+    models carried from the CPU to the card: full-forward logits within
+    1e-4 (float32, TF32 off), prefill plus four decode steps within 1e-4
+    of the CPU's, the same experts routed and the same greedy tokens."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import LM
+    from repro_torch.serve import LMServer
+
+    common = dict(d_model=64, n_heads=4, d_ff=128, vocab=100, dtype="float32",
+                  chunk_q=16)
+    cfg = {"rwkv": ModelConfig(name="t-rwkv", family="rwkv", n_layers=2, n_kv_heads=4,
+                               head_dim=16, rwkv_head_dim=16, la_chunk=4, **common),
+           "hybrid": ModelConfig(name="t-jamba", family="hybrid", n_layers=8, n_kv_heads=2,
+                                 n_experts=4, moe_top_k=2, moe_dff=128, moe_every=2,
+                                 attn_every=4, mamba_d_state=8, mamba_head_dim=16,
+                                 la_chunk=4, **common),
+           "encdec": ModelConfig(name="t-encdec", family="encdec", n_layers=2,
+                                 encoder_layers=2, n_kv_heads=4, frontend="audio_stub",
+                                 **common)}[family]
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (2, 20))
+    extra = ({"frames": rng.normal(0, 1, (2, 24, 64)).astype(np.float32)}
+             if family == "encdec" else {})
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+        card = LM(cfg, device=cuda, empty=True)
+        card.load_state_dict(cpu.state_dict())
+        np.testing.assert_allclose(card(toks, **extra).cpu().numpy(),
+                                   cpu(toks, **extra).numpy(), atol=1e-4, rtol=0)
+        caches = []
+        for lm in (cpu, card):
+            last, cache = lm.prefill(toks[:, :16], cache_len=20, **extra)
+            steps = [last[:, -1]]
+            for t in range(16, 20):
+                lg, cache = lm.decode_step(toks[:, t:t + 1], cache, np.full(2, t))
+                steps.append(lg[:, 0])
+            caches.append(torch.stack(steps).cpu().numpy())
+        np.testing.assert_allclose(caches[1], caches[0], atol=1e-4, rtol=0)
+        if family == "hybrid":
+            x = torch.from_numpy(rng.normal(0, 1, (64, 64)).astype(np.float32))
+            np.testing.assert_array_equal(card.layers[1].ffn.route(x.to(cuda))[1].cpu(),
+                                          cpu.layers[1].ffn.route(x)[1])
+        if family != "encdec":
+            np.testing.assert_array_equal(LMServer(card).generate(toks[:, :8], 6),
+                                          LMServer(cpu).generate(toks[:, :8], 6))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.gpu
 def test_nan_rows_rank_last_on_the_card(cuda):
     """ROADMAP C.7 on the card: the k-NN selections take the smallest
     distances without negating them (a negation on the card drops a NaN's

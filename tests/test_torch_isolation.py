@@ -50,13 +50,15 @@ def test_port_files_cover_the_process_group_modules():
 
 def test_port_files_cover_the_example_twins_and_the_lm():
     """The three example twins, the competitor loaders, the leaf metrics,
-    the configs and the dense LM are held to the port's import rule."""
+    the configs and the LM of every family are held to the port's import
+    rule."""
     files = set(_port_files())
     twins = [REPO / "examples" / f"torch_{name}.py"
              for name in ("quickstart", "adaptive_workload", "knn_serving")]
     mods = [PORT / "core" / f"{name}.py" for name in ("baselines", "hilbert", "metrics")]
     mods += [PORT / "models" / f"{name}.py"
-             for name in ("layers", "attention", "transformer", "model", "convert")]
+             for name in ("layers", "attention", "transformer", "model", "convert",
+                          "linear_attn", "rwkv", "mamba", "moe")]
     mods += [PORT / "configs" / "base.py", PORT / "serve" / "engine.py"]
     for path in twins + mods:
         assert path in files and path.exists()
