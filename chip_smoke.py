@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main, serving, streaming, sharded, collective,
-first-generation, retrieval, competitor-loader and LM serving paths (every
-family of the repo's model configs) on one NVIDIA GPU and check them.
+first-generation, retrieval, competitor-loader, LM serving (every family
+of the repo's model configs) and LM training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -241,6 +242,26 @@ Phases (any failure exits non-zero; nothing is caught):
    internvl2: 256 patches and 256 tokens), timed twice: prefill ms,
    decode ms per step, tokens per second, peak allocation and the
    dropped assignments per MoE layer.
+10. Training, after phase 9.  (a) qwen3-0.6b whole, seeded random
+   weights: one AdamW step (``train.trainer``, ``n_micro = 2``) of 2 x
+   128 tokens in float32 (TF32 off) against the same step on the same
+   weights in float64: loss and grad norm within ``TRAIN_LOSS_TOL``, each
+   reference leaf's gradient within ``TRAIN_GRAD_TOL`` and each updated
+   leaf within ``TRAIN_PARAM_TOL``; ``n_micro = 1`` within the same limits
+   of ``n_micro = 2``.  Then the ``launch.train.main`` twin in bf16 under
+   ``torch.use_deterministic_algorithms(True)``: 8 AdamW steps of 4 x 512
+   ``TokenPipeline`` tokens, ``n_micro = 2``, ``save_async`` every 4
+   steps; the loss must fall; a restart from step 4 restores params,
+   optimizer state (bf16 and float32, ROADMAP C.11) and pipeline state
+   bit for bit and repeats steps 4-7 with the same losses bit for bit.
+   Step ms, tokens per second, peak allocation, 6NT model FLOPs against
+   the bf16 peak and one profiled step (busy, idle share, device events).
+   (b) ``pick_for``'s path: qwen3-moe-235b-a22b at two layers, full
+   width, bf16, Adafactor: two steps of 2 x 512 tokens with finite
+   losses and the dropped assignments read; the first step's bf16 result
+   equals the optimizer's float32 step rounded, bit for bit, every leaf
+   moved, and that float32 step is within ``ADAFACTOR_TOL`` of the step
+   recomputed in float64 on the card; the state's bytes beside AdamW's.
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
@@ -263,6 +284,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3109,6 +3131,418 @@ def family_run(name, arch, layers, checks, run, seed, rng, torch, device, profil
 
 
 # --------------------------------------------------------------------------
+# phase 10: training on the card
+# --------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_MOE_ARCH = "qwen3-moe-235b-a22b"
+TRAIN_MOE_LAYERS = 2
+# A float32 step against the same step on the same weights in float64 (TF32
+# off), and n_micro = 1 against n_micro = 2 in float32: constants fixed
+# before any run on the card, never derived from the model under test.
+TRAIN_LOSS_TOL = 1e-5       # loss and grad norm, relative
+TRAIN_GRAD_TOL = 1e-3       # each reference leaf's gradient, relative L2
+TRAIN_PARAM_TOL = 1e-4      # each reference leaf after the AdamW step, relative L2
+# Adafactor's step (float32 arithmetic) against the same step in float64
+# from the same bf16 gradients, state and parameters, relative L2 per leaf.
+# The float32 result's own spacing at a norm scale of 1.0 is about 3e-6 of
+# a step of 1e-2; a fault in the formulas moves the step by O(1).
+ADAFACTOR_TOL = 1e-4
+# a bf16 norm scale of 1.0 moves only under a step above half its unit in
+# the last place (2^-8); a clipped Adafactor step at lr 1e-2 moves it
+ADAFACTOR_LR = 1e-2
+TRAIN_STEPS, CKPT_EVERY = 8, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
+MOE_BATCH, MOE_SEQ = 2, 512
+BF16_DENSE_PEAK = 989e12    # H100 SXM bf16 dense FLOP/s (NVIDIA data sheet, 700 W)
+
+
+def leaf_errors(cfg, names, got, want):
+    """Relative L2 of ``got`` against ``want`` (lists in ``names`` order),
+    per reference leaf (its rows summed), keyed by the leaf's path."""
+    from repro_torch.models import reference_leaves
+
+    index = {n: i for i, n in enumerate(names)}
+    out = {}
+    for path, rows, _ in reference_leaves(cfg, names):
+        num = den = 0.0
+        for r in rows:
+            a, b = got[index[r]].double(), want[index[r]].double()
+            num += float((a - b).square().sum())
+            den += float(b.square().sum())
+        out["/".join(path)] = (num / den) ** 0.5 if den else (0.0 if num == 0 else float("inf"))
+    return out
+
+
+def check_within(tag, what, errs: dict, tol) -> dict:
+    """The largest of ``errs`` (leaf -> relative error) within ``tol``."""
+    leaf = max(errs, key=errs.get)
+    if not errs[leaf] <= tol:
+        raise AssertionError(f"[{tag}] {what}: {leaf} is {errs[leaf]} from the reference, "
+                             f"limit {tol}")
+    return {"max": errs[leaf], "leaf": leaf, "tol": tol}
+
+
+def check_scalar(tag, what, got, want, tol) -> float:
+    err = abs(got - want) / abs(want)
+    if not err <= tol:
+        raise AssertionError(f"[{tag}] {what}: {got} against {want} ({err} > {tol})")
+    return err
+
+
+def train_f32_check(tag, cfg, torch, device, rng):
+    """One AdamW step (lr 3e-4) of the whole model on 2 x 128 tokens from
+    seeded weights: in float64 with ``n_micro = 2`` (the witness,
+    accumulating in float64), and in float32 with ``n_micro = 2`` and 1.
+    The float32 ``n_micro = 2`` step's loss and grad norm within
+    ``TRAIN_LOSS_TOL`` of the witness's, each leaf's gradient within
+    ``TRAIN_GRAD_TOL`` and each updated leaf within ``TRAIN_PARAM_TOL``;
+    ``n_micro = 1`` within the same limits of ``n_micro = 2``.  The init
+    draws in float32, so the three start from the same values."""
+    import dataclasses
+
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import init_state, make_train_step, value_and_grad
+
+    toks = rng.integers(0, cfg.vocab, (2, 128))
+    batch = {"tokens": toks, "labels": toks}
+    runs, old = {}, None
+    for name, dtype, n_micro in (("float64", "float64", 2), ("float32", "float32", 2),
+                                 ("float32_micro1", "float32", 1)):
+        lm = LM(dataclasses.replace(cfg, dtype=dtype), device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+        names = [n for n, _ in lm.named_parameters()]
+        if old is None:
+            old = [p.detach().float() for p in lm.parameters()]
+        accum = torch.float64 if dtype == "float64" else torch.float32
+        opt = adamw(lr=3e-4)
+        step = make_train_step(lm, opt, n_micro, accum)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(lm, batch, n_micro, accum)
+        _, gnorm = step.apply(init_state(opt, lm), grads, 0)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": float(loss), "grad_norm": float(gnorm), "grads": grads,
+                      "params": [p.detach() for p in lm.parameters()],
+                      "s": time.perf_counter() - t0}
+        del lm, step
+    out = {"batch": [2, 128], "lr": 3e-4, "params": sum(p.numel() for p in old)}
+    for name, want in (("float32", "float64"), ("float32_micro1", "float32")):
+        a, b = runs[name], runs[want]
+        updates = leaf_errors(cfg, names, [p.double() - o for p, o in zip(a["params"], old)],
+                              [p.double() - o for p, o in zip(b["params"], old)])
+        out[f"{name}_vs_{want}"] = {
+            "loss": [a["loss"], b["loss"]], "grad_norm": [a["grad_norm"], b["grad_norm"]],
+            "loss_rel_err": check_scalar(tag, f"{name} loss", a["loss"], b["loss"],
+                                         TRAIN_LOSS_TOL),
+            "grad_norm_rel_err": check_scalar(tag, f"{name} grad norm", a["grad_norm"],
+                                              b["grad_norm"], TRAIN_LOSS_TOL),
+            "grads": check_within(tag, f"{name} gradient", leaf_errors(
+                cfg, names, a["grads"], b["grads"]), TRAIN_GRAD_TOL),
+            "params": check_within(tag, f"{name} updated leaf", leaf_errors(
+                cfg, names, a["params"], b["params"]), TRAIN_PARAM_TOL),
+            "update_rel_l2_max": max(updates.values()),
+            "seconds": [a["s"], b["s"]]}
+        log(f"[{tag}] {name} against {want}: {out[f'{name}_vs_{want}']}")
+    del runs, old
+    return out
+
+
+def bits_equal(a, b, torch) -> bool:
+    """The same shape, dtype and bits (``b`` moved to ``a``'s device)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.to(a.device).contiguous().view(torch.uint8)))
+
+
+def train_bf16_run(tag, cfg, torch, device):
+    """The ``launch.train.main`` twin in bf16: AdamW (lr 3e-4), ``n_micro =
+    2``, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from
+    ``TokenPipeline``, ``save_async`` every ``CKPT_EVERY`` steps, under
+    ``torch.use_deterministic_algorithms(True)``.  The loss must fall.
+    Then a restart from the step-4 checkpoint: params, optimizer state and
+    pipeline state bit for bit equal to what was saved, and steps 4..7
+    again with the uninterrupted run's losses bit for bit.  Step ms,
+    tokens/s, peak allocation, the model FLOPs' share of the bf16 peak,
+    and one profiled step."""
+    import gc
+    import statistics
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import build_batch, restore_state, save_state
+    from repro_torch.models import LM, arrays_from_params
+    from repro_torch.train.checkpoint import CheckpointManager, _flatten
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    out = {"batch": [TRAIN_BATCH, TRAIN_SEQ], "n_micro": TRAIN_MICRO, "lr": 3e-4,
+           "deterministic_algorithms": True}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            lm = LM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+            opt = get_optimizer("adamw", lr=3e-4)
+            state = init_state(opt, lm)
+            step_fn = make_train_step(lm, opt, TRAIN_MICRO)
+            pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, n_shards=1, seed=0)
+            mgr = CheckpointManager(tmp)
+            n_params = sum(p.numel() for p in lm.parameters())
+            torch.cuda.reset_peak_memory_stats()
+            losses, gnorms, step_s, saved = [], [], [], None
+            for step in range(TRAIN_STEPS):
+                batch = build_batch(pipe, cfg, TRAIN_BATCH, TRAIN_SEQ, device=device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batch, step)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                if (step + 1) % CKPT_EVERY == 0:
+                    if step + 1 == CKPT_EVERY:       # what the restart must find
+                        saved = {k: v.to("cpu", copy=True) for k, v in _flatten(
+                            {"params": arrays_from_params(cfg, lm.state_dict()),
+                             "opt": state}).items()}
+                        saved_pipe = pipe.state.as_dict()
+                    t0 = time.perf_counter()
+                    save_state(mgr, step + 1, lm, state, pipe)
+                    out[f"save_async_s_step{step + 1}"] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            mgr.wait()
+            out["wait_s"] = time.perf_counter() - t0
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"[{tag}] the bf16 loss did not fall: {losses}")
+            del lm, state, step_fn, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            pipe2 = TokenPipeline(cfg.vocab, TRAIN_SEQ, n_shards=1, seed=0)
+            t0 = time.perf_counter()
+            lm2, state2, start = restore_state(mgr, cfg, pipe2, device, step=CKPT_EVERY)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.perf_counter() - t0
+            got = _flatten({"params": arrays_from_params(cfg, lm2.state_dict()),
+                            "opt": state2})
+            bad = [k for k in saved if not bits_equal(got[k], saved[k], torch)]
+            if start != CKPT_EVERY or sorted(got) != sorted(saved) or bad \
+                    or pipe2.state.as_dict() != saved_pipe:
+                raise AssertionError(f"[{tag}] the restored state differs from the saved one: "
+                                     f"step {start}, leaves {bad[:5]}, pipeline "
+                                     f"{pipe2.state.as_dict()} against {saved_pipe}")
+            out["restored_leaves"] = len(got)
+            out["restored_bf16_leaves"] = sum(v.dtype == torch.bfloat16 for v in got.values())
+            del saved, got
+            step_fn2 = make_train_step(lm2, opt, TRAIN_MICRO)
+            resumed = []
+            for step in range(start, TRAIN_STEPS):
+                batch = build_batch(pipe2, cfg, TRAIN_BATCH, TRAIN_SEQ, device=device)
+                state2, m = step_fn2(state2, batch, step)
+                resumed.append(float(m["loss"]))
+            if resumed != losses[start:]:
+                raise AssertionError(f"[{tag}] resumed losses {resumed} differ from the "
+                                     f"uninterrupted run's {losses[start:]}")
+            batch = build_batch(pipe2, cfg, TRAIN_BATCH, TRAIN_SEQ, device=device)
+            prof = profile_batches({"train_step": lambda: step_fn2(state2, batch, TRAIN_STEPS)},
+                                   torch)["train_step"]
+            del lm2, state2, step_fn2, batch
+    finally:
+        torch.use_deterministic_algorithms(was)
+    med = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    out.update(params=n_params, losses=losses, grad_norms=gnorms, resumed_losses=resumed,
+               resumed_equal_bit_for_bit=True, step_s=step_s, step_ms_median=med * 1e3,
+               tokens_per_s=tokens / med, max_memory_allocated=peak,
+               model_flops_per_step=flops,
+               model_flops_share_of_bf16_peak=flops / med / BF16_DENSE_PEAK,
+               bf16_peak_source="989 TFLOP/s, NVIDIA H100 SXM data sheet (dense)",
+               profile=prof)
+    log(f"[{tag}] bf16 {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} (n_micro "
+        f"{TRAIN_MICRO}): losses {losses}; step {med * 1e3:.1f} ms median, "
+        f"{tokens / med:.0f} tokens/s, peak {peak / 1e9:.2f} GB, 6NT = {flops:.3e} FLOPs "
+        f"({flops / med / BF16_DENSE_PEAK:.4f} of the bf16 peak); restart at step "
+        f"{CKPT_EVERY}: state bit for bit, losses {resumed} bit for bit; profiled step "
+        f"{prof['wall_us'] / 1e3:.1f} ms wall, {prof['device_busy_us'] / 1e3:.1f} ms busy, "
+        f"idle {prof['idle_share']:.3f}, {prof['device_events']} device events")
+    return out
+
+
+def adafactor_f64_err(g, s, p32, new32, lr, torch, decay=0.99, eps=1e-30, clip=1.0,
+                      chunk_elems=1 << 26):
+    """Relative L2 of the float32 step ``new32 - p32`` against Adafactor's
+    step recomputed in float64 from the same ``g`` and state ``s`` (the
+    reference's formulas, written out again here: factored row and column
+    means over the last two axes, or the elementwise second moment, then
+    the update clipped by its RMS over the whole leaf), slice by slice
+    along the leading axes in two passes (the clip needs the whole leaf)."""
+    factored = g.ndim >= 2 and g.shape[-1] > 1 and g.shape[-2] > 1
+    if factored:
+        m, n = g.shape[-2:]
+        G, P, N = (t.reshape(-1, m, n) for t in (g, p32, new32))
+        R, C = s["row"].reshape(-1, m), s["col"].reshape(-1, n)
+    else:
+        G, P, N = (t.reshape(1, 1, -1) for t in (g, p32, new32))
+        V = s["v"].reshape(1, 1, -1)
+    step = max(1, chunk_elems // (G.shape[1] * G.shape[2]))
+
+    def u64(i):
+        gg = G[i:i + step].double()
+        g2 = gg * gg + eps
+        if factored:
+            row = decay * R[i:i + step].double() + (1 - decay) * g2.mean(-1)
+            col = decay * C[i:i + step].double() + (1 - decay) * g2.mean(-2)
+            rfac = row / row.mean(-1, keepdim=True).clamp(min=eps)
+            v = rfac[..., None] * col[..., None, :]
+        else:
+            v = decay * V.double() + (1 - decay) * g2
+        return gg / torch.sqrt(v + eps)
+
+    ss = sum(float(u64(i).square().sum()) for i in range(0, G.shape[0], step))
+    scale = max(1.0, (ss / g.numel() + eps) ** 0.5 / clip)
+    num = den = 0.0
+    for i in range(0, G.shape[0], step):
+        d64 = -lr * u64(i) / scale
+        d32 = N[i:i + step].double() - P[i:i + step].double()
+        num += float((d32 - d64).square().sum())
+        den += float(d64.square().sum())
+    return (num / den) ** 0.5
+
+
+def train_moe_adafactor(tag, torch, device):
+    """``pick_for``'s path: qwen3-moe-235b-a22b at ``TRAIN_MOE_LAYERS``
+    layers, full width, bf16, Adafactor (lr ``ADAFACTOR_LR``), two steps of
+    ``MOE_BATCH`` x ``MOE_SEQ`` tokens: losses finite, ``MoE.dropped`` read.
+    The first step is held leaf by leaf: its bf16 result equals the
+    optimizer's float32 step from the old parameters (kept on the host)
+    rounded to bf16, bit for bit; that float32 step is within
+    ``ADAFACTOR_TOL`` of the step recomputed in float64 on the card
+    (:func:`adafactor_f64_err`); every leaf moved.  Reports the state's
+    bytes against AdamW's."""
+    import dataclasses
+    import gc
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import build_batch
+    from repro_torch.models import LM, reference_leaves
+    from repro_torch.train.optimizer import get_optimizer, pick_for
+    from repro_torch.train.trainer import init_state, make_train_step, stack_leaf, value_and_grad
+
+    base = get_config(TRAIN_MOE_ARCH)
+    opt_name = pick_for(base)
+    if opt_name != "adafactor":
+        raise AssertionError(f"[{tag}] pick_for({TRAIN_MOE_ARCH}) is {opt_name}")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(5))
+    opt = get_optimizer(opt_name, lr=ADAFACTOR_LR)
+    state = init_state(opt, lm)
+    step_fn = make_train_step(lm, opt)
+    pipe = TokenPipeline(cfg.vocab, MOE_SEQ, n_shards=1, seed=1)
+    names = [n for n, _ in lm.named_parameters()]
+    params = list(lm.parameters())
+    out = {"layers": cfg.n_layers, "optimizer": opt_name, "lr": ADAFACTOR_LR,
+           "batch": [MOE_BATCH, MOE_SEQ], "params": sum(p.numel() for p in params),
+           "state_bytes": sum(v.numel() * v.element_size() for s in state for v in s.values()),
+           "adamw_state_bytes": 2 * 4 * sum(p.numel() for p in params)}
+    moes = moe_layers(lm)
+    batch = build_batch(pipe, cfg, MOE_BATCH, MOE_SEQ, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(lm, batch)
+    out["dropped_step1"] = {li: int(m.dropped) for li, m in moes}
+    old = [p.detach().to("cpu", copy=True) for p in params]
+    state, gnorm = step_fn.apply(state, grads, 0)
+    torch.cuda.synchronize()
+    out["step1_s_with_host_copy"] = time.perf_counter() - t0
+    out["losses"] = [float(loss)]
+    out["grad_norm"] = float(gnorm)
+    index = {n: i for i, n in enumerate(names)}
+    errs, moved = {}, {}
+    for path, rows, stacked in reference_leaves(cfg, names):
+        idx = [index[r] for r in rows]
+        g = stack_leaf([grads[i] for i in idx], stacked)
+        p_old = stack_leaf([old[i] for i in idx], stacked).to(device)
+        p32 = p_old.float()
+        s0 = opt.init_leaf(g)
+        new32, _ = opt.update_leaf(g, s0, p32, 0)
+        new = stack_leaf([params[i].detach() for i in idx], stacked)
+        key = "/".join(path)
+        if not bits_equal(new, new32.to(new.dtype), torch):
+            raise AssertionError(f"[{tag}] {key}: the bf16 step is not the float32 step "
+                                 f"rounded to bf16")
+        moved[key] = int((new != p_old).sum())
+        del p_old, new
+        errs[key] = adafactor_f64_err(g, s0, p32, new32, ADAFACTOR_LR, torch)
+        del g, p32, new32
+    del old, grads
+    out["adafactor_vs_float64"] = check_within(tag, "Adafactor step against float64", errs,
+                                               ADAFACTOR_TOL)
+    out["leaves"] = len(moved)
+    out["moved_elements_min"] = min(moved.values())
+    if not all(moved.values()):
+        raise AssertionError(f"[{tag}] leaves that did not move: "
+                             f"{[k for k, v in moved.items() if not v]}")
+    for _, m in moes:
+        m.dropped.zero_()
+    batch = build_batch(pipe, cfg, MOE_BATCH, MOE_SEQ, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, 1)
+    loss2 = float(m["loss"])
+    torch.cuda.synchronize()
+    out["step2_ms"] = (time.perf_counter() - t0) * 1e3
+    out["losses"].append(loss2)
+    out["dropped_step2"] = {li: int(mm.dropped) for li, mm in moes}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"[{tag}] losses {out['losses']}")
+    log(f"[{tag}] {TRAIN_MOE_ARCH} ({cfg.n_layers} layers, {out['params']:,} bf16 params) "
+        f"{opt_name} lr {ADAFACTOR_LR}: losses {out['losses']}, step 2 {out['step2_ms']:.1f} ms, "
+        f"dropped {out['dropped_step1']} / {out['dropped_step2']}; step 1 against float64 "
+        f"{out['adafactor_vs_float64']}, every leaf moved (at least "
+        f"{out['moved_elements_min']} elements); state {out['state_bytes']:,} B against "
+        f"AdamW's {out['adamw_state_bytes']:,} B; peak {out['max_memory_allocated'] / 1e9:.2f} GB")
+    del lm, state, step_fn, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_path(tag, torch, smi, device="cuda"):
+    """Phase 10: training on the card.  (a) qwen3-0.6b whole (28 layers, d
+    1024, vocab 151,936, seeded random weights): the float32 step against
+    float64 (:func:`train_f32_check`), then the bf16 training run with its
+    restart (:func:`train_bf16_run`).  (b) ``pick_for``'s path,
+    qwen3-moe-235b-a22b at two layers under Adafactor
+    (:func:`train_moe_adafactor`)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    rng = np.random.default_rng(23)
+    out = {"arch": TRAIN_ARCH, "nvidia_smi": smi}
+    out["f32_check"] = train_f32_check(f"{tag} f32", dataclasses.replace(cfg, dtype="float32"),
+                                       torch, device, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16_run"] = train_bf16_run(f"{tag} bf16", cfg, torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_adafactor"] = train_moe_adafactor(f"{tag} moe", torch, device)
+    return out
+
+
+# --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write every measurement here as JSON")
@@ -3116,6 +3550,8 @@ def main(argv=None) -> int:
                     help="also trace one batch of each kind with torch.profiler")
     args = ap.parse_args(argv)
 
+    # phase 10 turns deterministic algorithms on; cuBLAS needs this set first
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3204,6 +3640,7 @@ def main(argv=None) -> int:
     del calls5, ucalls5, wcalls5, rcalls5
     results["lm"] = lm_path("lm", torch, smi, profile=args.profile)
     results["lm_families"] = families_path("families", torch, smi, profile=args.profile)
+    results["training"] = training_path("training", torch, smi)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

@@ -11,6 +11,12 @@ encoder's blocks are stacked along ``encoder_layers`` rows
 (``tree["encoder"]``, row ``j`` the port's ``encoder.{j}``), and the VLM's
 ``patch_proj`` is one matrix.  Weights keep the reference's ``(in, out)``
 layout, experts ``(E, in, out)``.  No module of that package is imported.
+
+``arrays_from_params`` is the inverse: the port's state in the
+reference's tree, its leaves in the reference's order (``jax.tree.leaves``
+sorts dict keys at every level).  Checkpoints, the optimizers (which
+update each reference leaf as one tensor, ``reference_leaves``) and the
+gradient tests all use this one mapping.
 """
 from __future__ import annotations
 
@@ -30,8 +36,9 @@ def _flat(tree, prefix=""):
 
 def params_from_arrays(cfg, tree: Mapping) -> dict:
     """The ``LM`` state dict (CPU tensors, the arrays' dtypes; bfloat16
-    given as ``ml_dtypes`` arrays is read through its bits) of the
-    reference's parameter tree for ``cfg``.  Load it with
+    given as ``ml_dtypes`` arrays is read through its bits; leaves given
+    as tensors stay where they are) of the reference's parameter tree for
+    ``cfg``.  Load it with
     ``lm.load_state_dict(params_from_arrays(cfg, tree))``; it raises on a
     missing or an unexpected weight."""
     sb, n_blocks = cfg.superblock, cfg.n_blocks
@@ -66,7 +73,56 @@ def params_from_arrays(cfg, tree: Mapping) -> dict:
     return state
 
 
+def reference_leaves(cfg, names) -> list[tuple[tuple[str, ...], list[str], bool]]:
+    """The reference's parameter leaves for the port's parameter ``names``
+    (``LM.state_dict()`` keys), in the reference's leaf order: ``(path,
+    rows, stacked)``, ``path`` the leaf's keys in the reference's tree,
+    ``rows`` the port's names that make it (row ``b`` of a stacked leaf is
+    ``rows[b]``), ``stacked`` whether the leaf has a leading ``n_blocks``
+    (``blocks``) or ``encoder_layers`` (``encoder``) axis."""
+    sb, n_blocks = cfg.superblock, cfg.n_blocks
+    leaves: dict[tuple[str, ...], list] = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            li, _, rest = rest.partition(".")
+            b, i = divmod(int(li), sb)
+            if b < n_blocks:
+                path, row = ("blocks", f"l{i}", *rest.split(".")), b
+            else:
+                path, row = (f"rem{int(li) - n_blocks * sb}", *rest.split(".")), None
+        elif head == "encoder":
+            j, _, rest = rest.partition(".")
+            path, row = ("encoder", *rest.split(".")), int(j)
+        else:
+            path, row = tuple(name.split(".")), None
+        leaves.setdefault(path, []).append((row, name))
+    out = []
+    for path in sorted(leaves):
+        rows = sorted(leaves[path], key=lambda r: -1 if r[0] is None else r[0])
+        out.append((path, [name for _, name in rows], rows[0][0] is not None))
+    return out
+
+
+def arrays_from_params(cfg, state: Mapping) -> dict:
+    """The reference's parameter tree (nested dicts of tensors, keys sorted
+    at every level, so that iteration gives the reference's leaf order) of
+    the port's ``state`` (``lm.state_dict()`` or any mapping of those names
+    to tensors): the inverse of :func:`params_from_arrays`.  Stacked leaves
+    are new tensors on the rows' device; the others are ``state``'s own."""
+    tree: dict = {}
+    for path, rows, stacked in reference_leaves(cfg, state):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (torch.stack([state[r] for r in rows]) if stacked
+                          else state[rows[0]])
+    return tree
+
+
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":      # ml_dtypes: no NumPy dtype torch reads
         return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)

@@ -22,6 +22,12 @@ The reference runs the dispatch under ``shard_map`` with experts split
 over a model axis and a ``psum``; one device holds every expert, so the
 local range is all of them and there is no combine across shards.
 Arctic's dense-residual SwiGLU is added after the experts.
+
+Training rematerialises every layer (``LM.loss``): a layer's forward runs
+again in the backward pass with ``count_drops`` off, so ``dropped``
+counts each assignment once per forward.
+``aux_loss`` is the reference's Switch load-balancing loss; like the
+reference, the LM's loss does not add it.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ class MoE(nn.Module):
     """``(B, S, D) -> (B, S, D)`` over ``n_experts`` SwiGLU experts of
     hidden ``moe_dff`` (``d_ff`` if 0).  ``dropped`` counts the assignments
     that found their expert full since it was last zeroed (a device
-    tensor: reading it waits for the card)."""
+    tensor: reading it waits for the card), while ``count_drops`` is on
+    (off during a rematerialised forward)."""
 
     def __init__(self, cfg, init: Init):
         super().__init__()
@@ -59,6 +66,7 @@ class MoE(nn.Module):
         if cfg.dense_residual:
             self.dense = MLP(d, cfg.d_ff, init)
         self.dropped = torch.zeros((), dtype=torch.int64, device=init.device)
+        self.count_drops = True
 
     def route(self, xf):
         """Tokens ``(T, D)`` -> ``(weights (T, K) in xf's dtype, experts (T,
@@ -80,7 +88,8 @@ class MoE(nn.Module):
         pos = torch.empty_like(order)
         pos[order] = torch.arange(t * k, device=xc.device) - first[sfe]
         drop = pos >= c
-        self.dropped += drop.sum()
+        if self.count_drops:
+            self.dropped += drop.sum()
         slot = torch.where(drop, c, pos)                      # row c: the sentinel
         buf = torch.zeros(e, c + 1, d, dtype=xc.dtype, device=xc.device)
         buf[flat_e, slot] = xc.repeat_interleave(k, dim=0)
@@ -95,6 +104,16 @@ class MoE(nn.Module):
         for j in range(1, k):                                 # slot order
             out = out + contrib[:, j]
         return out
+
+    def aux_loss(self, x):
+        """The Switch load-balancing loss of ``(B, S, D)`` tokens: ``E *
+        sum(f * P)``, ``f`` the share of top-k assignments and ``P`` the mean
+        gate of each expert (float32; float64 in a float64 model)."""
+        e = self.cfg.n_experts
+        gates = torch.softmax(upcast(x.reshape(-1, x.shape[-1])) @ upcast(self.router), dim=-1)
+        _, tope = top_k(gates, self.cfg.moe_top_k)
+        onehot = F.one_hot(tope, e).to(gates.dtype).sum(dim=1)     # (T, E)
+        return e * torch.sum(onehot.mean(dim=0) * gates.mean(dim=0))
 
     def forward(self, x):
         b, s, d = x.shape

@@ -65,3 +65,22 @@ def test_example_twin_needs_a_card_by_default():
                           "--n", "2000"], cwd=str(REPO), env=env, capture_output=True,
                          text=True, timeout=600)
     assert run.returncode != 0 and "no CUDA device" in run.stderr
+
+
+def test_train_lm_twin_runs_on_the_cpu(tmp_path):
+    """``examples/torch_train_lm.py --tiny`` trains the reduced qwen3 for 4
+    steps on the CPU with the JAX package made unimportable, its
+    checkpoints under ``TMPDIR``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), TMPDIR=str(tmp_path))
+    name = "torch_train_lm.py"
+    code = ("import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            f"sys.argv = ['{name}', '--tiny', '--device', 'cpu', '--steps', '4']\n"
+            f"runpy.run_path('{REPO / 'examples' / name}', run_name='__main__')\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    steps = [line for line in run.stdout.splitlines() if line.startswith("step ")]
+    assert len(steps) == 4 and "loss: first" in run.stdout, run.stdout
+    assert (tmp_path / "repro_torch_train_lm_tiny").is_dir()

@@ -1134,6 +1134,91 @@ def test_lm_families_on_the_card_match_the_cpu_port(cuda, family):
         torch.backends.cuda.matmul.allow_tf32 = allow
 
 
+# the reduced configs of the training tests on the card: (arch, superblocks)
+TRAIN_FAMILIES = {"dense": ("qwen3-0.6b", 2), "local": ("gemma3-27b", 1),
+                  "rwkv": ("rwkv6-3b", 2), "hybrid": ("jamba-v0.1-52b", 1),
+                  "moe": ("qwen3-moe-235b-a22b", 2), "encdec": ("seamless-m4t-medium", 2),
+                  "vlm": ("internvl2-2b", 2)}
+
+
+def _train_pair(cuda, family, seed=3):
+    """A reduced config (d_model 64, vocab 300) as a CPU model and the same
+    weights on the card, and a batch of 2 x 32 tokens (with frames or 8
+    patches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import LM
+
+    arch, layers = TRAIN_FAMILIES[family]
+    cfg = reduced_config(get_config(arch), layers=layers, d_model=64, vocab=300)
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    card = LM(cfg, device=cuda, empty=True)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed + 1)
+    toks = rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(0, 1, (2, 32, 64)).astype(np.float32)
+    if cfg.frontend == "patch_stub":
+        batch["patch_embeds"] = rng.normal(0, 1, (2, 8, 64)).astype(np.float32)
+    return cpu, card, batch
+
+
+@pytest.fixture
+def no_tf32():
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(TRAIN_FAMILIES))
+def test_lm_loss_and_gradients_on_the_card_match_the_cpu_port(cuda, no_tf32, family):
+    """``LM.loss`` and every gradient of a reduced model of each family
+    on the card against the same weights on the CPU (float32, TF32 off):
+    the loss within 1e-5 relative, each gradient within 1e-4 in relative
+    L2, the MoE layers' drops counted once and equal."""
+    from repro_torch.train.trainer import value_and_grad
+
+    cpu, card, batch = _train_pair(cuda, family)
+    (l_cpu, g_cpu), (l_card, g_card) = (value_and_grad(lm, batch) for lm in (cpu, card))
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for (name, _), a, b in zip(cpu.named_parameters(), g_cpu, g_card):
+        err = float((b.cpu().double() - a.double()).norm() / a.double().norm())
+        assert err <= 1e-4, (name, err)
+    drops = [[int(layer.ffn.dropped) for layer in lm.layers if layer.ffn_kind == "moe"]
+             for lm in (cpu, card)]
+    assert drops[0] == drops[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_train_step_on_the_card_matches_the_cpu_port(cuda, no_tf32, opt_name):
+    """Two steps (``n_micro = 2``) of the reduced MoE model on the card and
+    on the CPU from the same weights: losses and grad norms within 1e-5
+    relative, every parameter within 1e-5 in relative L2."""
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    cpu, card, batch = _train_pair(cuda, "moe")
+    batch = {k: np.concatenate([v, v[::-1]]) for k, v in batch.items()}
+    opt = get_optimizer(opt_name, lr=1e-3)
+    runs = []
+    for lm in (cpu, card):
+        step_fn, state = make_train_step(lm, opt, n_micro=2), init_state(opt, lm)
+        ms = []
+        for step in range(2):
+            state, m = step_fn(state, batch, step)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(ms)
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-5)
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        err = float((b.detach().cpu().double() - a.detach().double()).norm()
+                    / a.detach().double().norm())
+        assert err <= 1e-5, (name, err)
+
+
 @pytest.mark.gpu
 def test_nan_rows_rank_last_on_the_card(cuda):
     """ROADMAP C.7 on the card: the k-NN selections take the smallest

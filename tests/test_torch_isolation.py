@@ -64,6 +64,17 @@ def test_port_files_cover_the_example_twins_and_the_lm():
         assert path in files and path.exists()
 
 
+def test_port_files_cover_training_and_launch():
+    """The training, data and launch layers and the training example are
+    held to the port's import rule."""
+    files = set(_port_files())
+    mods = [PORT / "train" / f"{name}.py" for name in ("optimizer", "trainer", "checkpoint")]
+    mods += [PORT / "data" / "pipeline.py", REPO / "examples" / "torch_train_lm.py"]
+    mods += [PORT / "launch" / f"{name}.py" for name in ("train", "serve")]
+    for path in mods:
+        assert path in files and path.exists()
+
+
 def _imported_modules(path: pathlib.Path):
     """``(module, relative)`` for every import in a file, relative imports
     resolved against the file's package."""
@@ -105,7 +116,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.serve.frontend, repro_torch.core.distributed, "
         "repro_torch.core.mesh, repro_torch.core.baselines, repro_torch.core.hilbert, "
         "repro_torch.core.metrics, repro_torch.configs, repro_torch.models, "
-        "repro_torch.models.convert\n"
+        "repro_torch.models.convert, repro_torch.train.optimizer, "
+        "repro_torch.train.trainer, repro_torch.train.checkpoint, "
+        "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
