@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main, serving, streaming, sharded, collective,
 first-generation, retrieval, competitor-loader, LM serving (every family
-of the repo's model configs) and LM training paths on one NVIDIA GPU and
-check them.
+of the repo's model configs), LM training and LM-on-a-mesh paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -262,6 +262,20 @@ Phases (any failure exits non-zero; nothing is caught):
    equals the optimizer's float32 step rounded, bit for bit, every leaf
    moved, and that float32 step is within ``ADAFACTOR_TOL`` of the step
    recomputed in float64 on the card; the state's bytes beside AdamW's.
+11. The LM on a device mesh, after phase 10.  (a) The dry run
+   (``launch.dryrun.run_cell``, fake process groups, ``FakeTensorMode``,
+   this machine's CPU): qwen3-0.6b ``train_4k`` on ``(16, 16)``,
+   qwen3-moe ``train_4k`` on ``(2, 16, 16)`` with the probes, and
+   qwen3-0.6b on a mesh of one at phase 10's shape; each record's
+   memory, FLOPs, collective bytes and trace seconds.  (b) An NCCL world
+   of one and a ``(1, 1)`` mesh on the card: qwen3-0.6b's bf16 AdamW
+   step at phase 10's shape under deterministic algorithms with DTensor
+   parameters, bit for bit equal to the plain step; its
+   ``FlopCounterMode`` count equal to (a)'s, the plain step's peak
+   allocation beside (a)'s prediction.  Four gloo ranks on ``cuda:0`` are
+   not run: gloo's ``all_gather_into_tensor`` on CUDA tensors kills the
+   rank (torch 2.11), so the four-rank checks run on the CPU
+   (``tests/test_torch_mesh.py``).
 
 ``--profile`` adds a ``torch.profiler`` trace of one batch of each kind
 per export, fused and first-generation, of one hot adaptive window and
@@ -3543,6 +3557,169 @@ def training_path(tag, torch, smi, device="cuda"):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the LM on a device mesh, and its dry run
+# --------------------------------------------------------------------------
+MESH_MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def mesh_dryrun(tag, torch):
+    """(a) ``launch.dryrun.run_cell`` on this machine's CPU (fake process
+    groups, ``FakeTensorMode``): qwen3-0.6b ``train_4k`` on ``(16, 16)``,
+    qwen3-moe ``train_4k`` on ``(2, 16, 16)`` with the probes, and
+    qwen3-0.6b on a mesh of one at phase 10's shape (``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``, ``n_micro`` ``TRAIN_MICRO``, AdamW, bf16)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh, make_production_mesh
+
+    cells = {}
+    try:
+        cells["qwen3_train_4k_16x16"] = dryrun.run_cell(
+            get_config(TRAIN_ARCH), SHAPES["train_4k"], make_production_mesh(multi_pod=False),
+            save=False)
+        cells["moe_train_4k_2x16x16"] = dryrun.run_cell(
+            get_config(MESH_MOE_ARCH), SHAPES["train_4k"], make_production_mesh(multi_pod=True),
+            probes=True, save=False)
+        fake_world(1)
+        cells["qwen3_phase10_1x1"] = dryrun.run_cell(
+            get_config(TRAIN_ARCH), ShapeConfig("phase10", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            make_mesh((1, 1), ("data", "model")), force_micro=TRAIN_MICRO, save=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for name, rec in cells.items():
+        m = rec["memory"]
+        log(f"[{tag}] {name}: {rec['depth']} depth, n_micro {rec.get('n_micro')}, "
+            f"args {m['argument_bytes_per_device'] / 2**30:.3f} GiB/dev, temp "
+            f"{m['temp_bytes_per_device'] / 2**30:.3f} GiB/dev, "
+            f"{rec['cost_analysis_raw']['flops']:.6e} FLOPs/dev, collectives "
+            f"{rec['collectives']['total_bytes'] / 2**30:.3f} GiB/dev, traced in "
+            f"{rec['trace_s']} s")
+    return cells
+
+
+def mesh_of_one(tag, torch, predicted, device="cuda"):
+    """(b) An NCCL world of one and a ``(1, 1)`` mesh on the card:
+    qwen3-0.6b's bf16 AdamW step at phase 10's shape under deterministic
+    algorithms, plain and with DTensor parameters (``shard_lm``); loss and
+    every updated leaf bit for bit equal (both under ``FlopCounterMode``),
+    the DTensor step's count equal to (a)'s traced count, the plain step's
+    peak allocation (a third run, without the counter) beside (a)'s
+    arguments plus temporary bytes."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.model import shard_batch, shard_lm
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    toks = np.random.default_rng(29).integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))
+    batch = {"tokens": torch.as_tensor(toks, device=device),
+             "labels": torch.as_tensor(toks, device=device)}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                                    rank=0)
+            try:
+                mesh = make_host_mesh(1, 1, device_type="cuda")
+                # both compared steps under the counter (it decomposes some
+                # ops, which then round differently); the plain step again
+                # without it for its peak, as phase 10 measures it
+                for name in ("plain", "dtensor", "plain_uncounted"):
+                    lm = LM(cfg, device=device,
+                            generator=torch.Generator(device=device).manual_seed(0))
+                    b = batch
+                    if name == "dtensor":
+                        shard_lm(lm, mesh)
+                        b = shard_batch(batch, mesh)
+                    opt = get_optimizer("adamw", lr=3e-4)
+                    state = init_state(opt, lm)
+                    step = make_train_step(lm, opt, TRAIN_MICRO)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    scope = use_mesh(mesh) if name == "dtensor" else contextlib.nullcontext()
+                    fc = (FlopCounterMode(display=False) if name != "plain_uncounted"
+                          else contextlib.nullcontext())
+                    with scope, fc:
+                        state, metrics = step(state, b, 0)
+                    torch.cuda.synchronize()
+                    runs[name] = {
+                        "s": time.perf_counter() - t0,
+                        "flops": fc.get_total_flops() if name != "plain_uncounted" else None,
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "loss": metrics["loss"].detach().reshape(1).clone(),
+                        "params": [(p.to_local() if hasattr(p, "to_local") else p)
+                                   .detach().clone() for p in lm.parameters()]}
+                    del lm, state, step, metrics
+                    torch.cuda.empty_cache()
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    a, b = runs["dtensor"], runs["plain"]
+    same_loss = bits_equal(a["loss"], b["loss"], torch)
+    bad = [i for i, (x, y) in enumerate(zip(a["params"], b["params"]))
+           if not bits_equal(x, y, torch)]
+    want_flops = predicted["cost_analysis_raw"]["flops"]
+    mem = predicted["memory"]
+    c = runs["plain_uncounted"]
+    out = {"loss": [float(a["loss"]), float(b["loss"])], "loss_bit_for_bit": same_loss,
+           "leaves_differing": len(bad), "leaves": len(a["params"]),
+           "flops_dtensor": a["flops"], "flops_plain": b["flops"], "flops_traced": want_flops,
+           "max_memory_allocated": {"dtensor": a["peak"], "plain": b["peak"],
+                                    "plain_uncounted": c["peak"]},
+           "predicted_peak_bytes": mem["argument_bytes_per_device"]
+           + mem["temp_bytes_per_device"],
+           "seconds": {"dtensor": a["s"], "plain": b["s"], "plain_uncounted": c["s"]}}
+    log(f"[{tag}] mesh of one, bf16 step of {TRAIN_BATCH} x {TRAIN_SEQ} (n_micro "
+        f"{TRAIN_MICRO}): loss {out['loss']}, bit for bit {same_loss}, "
+        f"{len(bad)} of {len(a['params'])} leaves differ; FlopCounterMode "
+        f"{a['flops']:.6e} (plain {b['flops']:.6e}) against the traced {want_flops:.6e}; "
+        f"peak {a['peak'] / 2**30:.3f} GiB (plain {b['peak'] / 2**30:.3f}, without the "
+        f"counter {c['peak'] / 2**30:.3f}) against the predicted "
+        f"{out['predicted_peak_bytes'] / 2**30:.3f} GiB")
+    if not same_loss or bad:
+        raise AssertionError(f"[{tag}] the DTensor step differs from the plain step: loss "
+                             f"{out['loss']}, leaves {bad[:5]}")
+    if a["flops"] != want_flops:
+        raise AssertionError(f"[{tag}] FlopCounterMode counted {a['flops']} FLOPs, the dry "
+                             f"run traced {want_flops}")
+    return out
+
+
+def mesh_path(tag, torch, smi, device="cuda"):
+    """Phase 11: (a) the dry run's cells (:func:`mesh_dryrun`), (b) a mesh
+    of one on the card (:func:`mesh_of_one`).  Four ranks on one card are
+    not run: gloo's ``all_gather_into_tensor`` on CUDA tensors kills the
+    rank (torch 2.11), and DTensor gathers with it; the four-rank checks
+    run on the CPU (``tests/test_torch_mesh.py``, ROADMAP "Not
+    verified")."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"nvidia_smi": smi, "dryrun": mesh_dryrun(f"{tag} dryrun", torch)}
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["mesh_of_one"] = mesh_of_one(f"{tag} one", torch, out["dryrun"]["qwen3_phase10_1x1"],
+                                     device)
+    out["total_s"] = time.perf_counter() - t0
+    log(f"[{tag}] phase 11 in {out['total_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="write every measurement here as JSON")
@@ -3641,6 +3818,7 @@ def main(argv=None) -> int:
     results["lm"] = lm_path("lm", torch, smi, profile=args.profile)
     results["lm_families"] = families_path("families", torch, smi, profile=args.profile)
     results["training"] = training_path("training", torch, smi)
+    results["mesh"] = mesh_path("mesh", torch, smi)
 
     line = []
     for name, (source, replaces) in REPLACES.items():

@@ -1,6 +1,7 @@
 """Serving launcher: batched greedy generation over any selectable decoder-only
 arch (the port of the JAX package's ``launch/serve.py``), on the card
-unless ``--device cpu``.
+unless ``--device cpu``, on a ``(1, 1)`` mesh of one process as the
+reference's launcher runs on its host mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --batch 4 --prompt-len 32 --max-new 16 --device cpu
@@ -16,7 +17,9 @@ import torch
 from ..configs.base import all_configs, get_config
 from ..core.queries_torch import resolve_device
 from ..models import LM
+from ..models.model import shard_lm
 from ..serve.engine import LMServer
+from .mesh import mesh_of_one
 from .train import reduced_config
 
 
@@ -41,17 +44,18 @@ def main(argv=None):
             "enc-dec and vlm flows"
         )
     device = resolve_device(args.device)
-    lm = LM(cfg, device=device)
-    server = LMServer(lm)
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(
-        0, cfg.vocab, (args.batch, args.prompt_len)
-    ).astype(np.int32)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.time()
-    out = server.generate(prompts, max_new=args.max_new)
-    dt = time.time() - t0
+    with mesh_of_one(device) as mesh:            # the reference's host mesh
+        lm = shard_lm(LM(cfg, device=device), mesh)
+        server = LMServer(lm)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(
+            0, cfg.vocab, (args.batch, args.prompt_len)
+        ).astype(np.int32)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        out = server.generate(prompts, max_new=args.max_new)
+        dt = time.time() - t0
     toks = args.batch * args.max_new
     print(f"generated {out.shape} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s on {device})")

@@ -4,7 +4,9 @@
 Runs real steps on the card (or the CPU with ``--device cpu``): data
 pipeline -> microbatched train step -> periodic async checkpoints, with
 crash-safe restart (resumes from the latest complete snapshot, including
-pipeline state).  The state is saved in the reference's layout
+pipeline state), on a ``(1, 1)`` mesh of one process as the reference's
+launcher runs on its host mesh (DTensor parameters, the plain step's ops
+bit for bit).  The state is saved in the reference's layout
 (``{"params": <its tree>, "opt": <its leaf order>}``, ``extra`` the step
 and the pipeline), so a float32 checkpoint of either package resumes in
 the other.  Like the reference's launcher it always trains with AdamW;
@@ -28,10 +30,12 @@ from ..configs.base import all_configs, get_config
 from ..core.queries_torch import resolve_device
 from ..data.pipeline import PipelineState, TokenPipeline
 from ..models import LM, arrays_from_params, params_from_arrays
-from ..models.model import VLM_PATCH_TOKENS
+from ..models.model import VLM_PATCH_TOKENS, shard_batch, shard_lm
+from ..models.sharding import full
 from ..train import optimizer as opt_mod
 from ..train.checkpoint import CheckpointManager
-from ..train.trainer import init_state, make_train_step
+from ..train.trainer import init_state, make_train_step, place_state
+from .mesh import mesh_of_one
 
 
 def reduced_config(cfg, *, layers=2, d_model=128, vocab=512):
@@ -84,8 +88,11 @@ def build_batch(pipe, cfg, shape_batch, seq, *, n_patch=VLM_PATCH_TOKENS, device
 def save_state(mgr, step, lm, opt_state, pipe) -> None:
     """Checkpoint ``step`` in the reference's layout, written on the
     manager's thread (``save_async``): ``params`` (its tree), ``opt`` (its
-    leaf order), ``extra`` the step and the pipeline state."""
-    tree = {"params": arrays_from_params(lm.cfg, lm.state_dict()), "opt": opt_state}
+    leaf order), ``extra`` the step and the pipeline state.  DTensors are
+    saved whole."""
+    state = {k: full(v) for k, v in lm.state_dict().items()}
+    opt = [{k: full(v) for k, v in s.items()} for s in opt_state]
+    tree = {"params": arrays_from_params(lm.cfg, state), "opt": opt}
     mgr.save_async(step, tree, extra={"step": step, "pipeline": pipe.state.as_dict()})
 
 
@@ -130,32 +137,36 @@ def main(argv=None):
     pipe = TokenPipeline(cfg.vocab, args.seq, n_shards=1, seed=0)
     mgr = CheckpointManager(args.ckpt_dir)
     n_patch = min(VLM_PATCH_TOKENS, args.seq // 4)
-    restored = restore_state(mgr, cfg, pipe, device)
-    if restored is not None:
-        lm, opt_state, start = restored
-        print(f"restored step {start}")
-    else:
-        lm = LM(cfg, device=device)
-        opt_state = init_state(optimizer, lm)
-        start = 0
-    step_fn = make_train_step(lm, optimizer, args.micro)
-
     losses = []
-    for step in range(start, args.steps):
-        batch = build_batch(pipe, cfg, args.batch, args.seq, n_patch=n_patch, device=device)
-        t0 = time.time()
-        opt_state, metrics = step_fn(opt_state, batch, step)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        print(
-            f"step {step:4d} loss {loss:8.4f} "
-            f"gnorm {float(metrics['grad_norm']):8.3f} "
-            f"{time.time()-t0:6.2f}s",
-            flush=True,
-        )
-        if (step + 1) % args.ckpt_every == 0:
-            save_state(mgr, step + 1, lm, opt_state, pipe)
-    mgr.wait()
+    with mesh_of_one(device) as mesh:            # the reference's host mesh
+        restored = restore_state(mgr, cfg, pipe, device)
+        if restored is not None:
+            lm, opt_state, start = restored
+            print(f"restored step {start}")
+            shard_lm(lm, mesh)
+            opt_state = place_state(optimizer, lm, opt_state)
+        else:
+            lm = shard_lm(LM(cfg, device=device), mesh)
+            opt_state = init_state(optimizer, lm)
+            start = 0
+        step_fn = make_train_step(lm, optimizer, args.micro)
+
+        for step in range(start, args.steps):
+            batch = shard_batch(build_batch(pipe, cfg, args.batch, args.seq, n_patch=n_patch,
+                                            device=device), mesh)
+            t0 = time.time()
+            opt_state, metrics = step_fn(opt_state, batch, step)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            print(
+                f"step {step:4d} loss {loss:8.4f} "
+                f"gnorm {float(metrics['grad_norm']):8.3f} "
+                f"{time.time()-t0:6.2f}s",
+                flush=True,
+            )
+            if (step + 1) % args.ckpt_every == 0:
+                save_state(mgr, step + 1, lm, opt_state, pipe)
+        mgr.wait()
     if len(losses) > 2:
         print(f"loss: first {losses[0]:.4f} -> last {losses[-1]:.4f} "
               f"({'DECREASED' if losses[-1] < losses[0] else 'no decrease'})")

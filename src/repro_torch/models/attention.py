@@ -24,6 +24,8 @@ import torch
 from torch import nn
 
 from .layers import Init, rms_norm, rope, upcast
+from .sharding import (DTensor, axes_for_mesh, constrain, local_region,
+                       merge_last, placements_for, proj, shard_map_compat, split_last)
 
 NEG = -2.0e38
 
@@ -46,13 +48,16 @@ class Attention(nn.Module):
         qk-norm before the rotary embedding at ``positions`` ``(B or 1, S)``."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q = (x @ self.wq).view(b, s, cfg.n_heads, cfg.hd)
-        k = (x @ self.wk).view(b, s, cfg.n_kv_heads, cfg.hd)
-        v = (x @ self.wv).view(b, s, cfg.n_kv_heads, cfg.hd)
+        q = split_last(proj(x, self.wq), cfg.n_heads, cfg.hd)
+        k = split_last(proj(x, self.wk), cfg.n_kv_heads, cfg.hd)
+        v = split_last(proj(x, self.wv), cfg.n_kv_heads, cfg.hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
-        return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+        q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+        return (constrain(q, None, ("fsdp", None, "tp", None)),
+                constrain(k, None, ("fsdp", None, None, None)),
+                constrain(v, None, ("fsdp", None, None, None)))
 
     def forward(self, x, *, window=0, causal=True):
         """Full-sequence (train/prefill) attention, q-chunked, causal
@@ -74,8 +79,8 @@ class Attention(nn.Module):
             if window:
                 mask &= pos_q[None, :, None] - pos[None, None, :] < window
             outs.append(sdpa_block(q[:, start:start + cq], k, v, mask))
-        out = torch.cat(outs, dim=1).reshape(b, s, cfg.n_heads * cfg.hd)
-        return out @ self.wo, k, v
+        out = merge_last(torch.cat(outs, dim=1))
+        return proj(out, self.wo), k, v
 
     def decode(self, x, cache_k, cache_v, pos, *, window=0):
         """One token ``(B, 1, D)`` at positions ``pos`` ``(B,)`` against the
@@ -86,9 +91,14 @@ class Attention(nn.Module):
         s_cache = cache_k.shape[1]
         q, k1, v1 = self.project_qkv(x, pos[:, None])
         slot = pos % s_cache if window else pos
-        bidx = torch.arange(b, device=x.device)
-        cache_k[bidx, slot] = k1[:, 0]
-        cache_v[bidx, slot] = v1[:, 0]
+        if isinstance(cache_k, DTensor):
+            logical = cache_logical(window)
+            write_at(cache_k, logical, slot, k1[:, 0])
+            write_at(cache_v, logical, slot, v1[:, 0])
+        else:
+            bidx = torch.arange(b, device=x.device)
+            cache_k[bidx, slot] = k1[:, 0]
+            cache_v[bidx, slot] = v1[:, 0]
         kpos = torch.arange(s_cache, device=x.device)[None, :]
         if window:
             # a ring slot holds the newest position congruent to it
@@ -97,15 +107,15 @@ class Attention(nn.Module):
         else:
             mask = kpos <= pos[:, None]
         out = sdpa_block(q, cache_k, cache_v, mask[:, None, :])
-        return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ self.wo
+        return proj(merge_last(out), self.wo)
 
     def encode_kv(self, enc_out):
         """Cross-attention keys and values ``(B, S_enc, Hk, hd)`` of the
         encoder's output: k-norm when ``qk_norm``, no rotary embedding."""
         cfg = self.cfg
         b, s, _ = enc_out.shape
-        k = (enc_out @ self.wk).view(b, s, cfg.n_kv_heads, cfg.hd)
-        v = (enc_out @ self.wv).view(b, s, cfg.n_kv_heads, cfg.hd)
+        k = split_last(proj(enc_out, self.wk), cfg.n_kv_heads, cfg.hd)
+        v = split_last(proj(enc_out, self.wv), cfg.n_kv_heads, cfg.hd)
         if cfg.qk_norm:
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         return k, v
@@ -115,12 +125,64 @@ class Attention(nn.Module):
         values: q-norm when ``qk_norm``, no rotary embedding, no mask."""
         cfg = self.cfg
         b, sq, _ = x.shape
-        q = (x @ self.wq).view(b, sq, cfg.n_heads, cfg.hd)
+        q = split_last(proj(x, self.wq), cfg.n_heads, cfg.hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
         mask = torch.ones(1, sq, enc_k.shape[1], dtype=torch.bool, device=x.device)
         out = sdpa_block(q, enc_k, enc_v, mask)
-        return out.reshape(b, sq, cfg.n_heads * cfg.hd) @ self.wo
+        return proj(merge_last(out), self.wo)
+
+
+def cache_logical(window) -> tuple:
+    """The reference's logical axes of a layer's key or value cache: a
+    local layer's ring is replicated along its slots, a global layer's
+    cache is split along the sequence over ``tp`` ('seq')."""
+    return ("fsdp", None, None, None) if window else ("fsdp", "seq", None, None)
+
+
+def _seq_offset(mesh, n_local: int, sharded: bool) -> int:
+    """The first global position of this rank's slice of a cache dim of
+    ``n_local`` local slots split over the model dim."""
+    if not sharded:
+        return 0
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index("model")] * n_local
+
+
+def write_at(cache, logical, slot, value):
+    """``cache[b, slot[b]] = value[b]`` for a ``(B, S, Hk, hd)`` DTensor
+    cache: each rank writes the rows whose slot lies in its slice of the
+    sequence (``local_map``: DTensor has no sharding rule for an indexed
+    write).  The cache is updated in place."""
+    seq = logical[1] is not None
+
+    def body(c, sl, val):
+        n = c.shape[1]
+        rel = sl.long() - _seq_offset(cache.device_mesh, n, seq)
+        keep = (rel >= 0) & (rel < n)
+        idx = rel.clamp(0, n - 1)
+        bidx = torch.arange(c.shape[0], device=c.device)
+        c[bidx, idx] = torch.where(keep[:, None, None], val, c[bidx, idx])
+        return c
+
+    local_region(body, (cache, slot, value), (logical, ("fsdp",), ("fsdp", None, None)),
+                 (logical, tuple(cache.shape)))
+
+
+def write_prefix(cache, logical, values):
+    """``cache[:, :S] = values`` (``(B, S, Hk, hd)``, the sequence
+    replicated) for a DTensor cache: each rank copies the positions of its
+    slice.  The cache is updated in place."""
+    seq = logical[1] is not None
+
+    def body(c, val):
+        n = c.shape[1]
+        off = _seq_offset(cache.device_mesh, n, seq)
+        m = min(max(val.shape[1] - off, 0), n)
+        c[:, :m] = val[:, off:off + m]
+        return c
+
+    local_region(body, (cache, values), (logical, ("fsdp", None, None, None)),
+                 (logical, tuple(cache.shape)))
 
 
 def sdpa_block(q, k, v, mask):
@@ -128,12 +190,30 @@ def sdpa_block(q, k, v, mask):
     heads are repeated to the full head count; scores and softmax in
     float32 (products of the inputs, summed in float32, as the reference's
     ``preferred_element_type``), the weights cast back to ``q``'s dtype.
-    ``mask`` is ``(B or 1, cq, Skv)``."""
-    hd = q.shape[-1]
+    ``mask`` is ``(B or 1, cq, Skv)``.
+
+    On a mesh the repeated keys and values are constrained to the
+    reference's ``("fsdp", None, "tp", None)`` and the block runs on each
+    rank's batch rows and heads (``local_map``: DTensor has no sharding
+    rule for the batched product of a batch dim split over two mesh
+    dims)."""
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    if not isinstance(q, DTensor):
+        return _sdpa(q, k, v, mask)
+    heads = ("fsdp", None, "tp", None)
+    k, v = constrain(k, None, heads), constrain(v, None, heads)
+    mesh = q.device_mesh
+    pq = placements_for(mesh, axes_for_mesh(mesh), heads, q.shape)
+    pm = (placements_for(mesh, axes_for_mesh(mesh), ("fsdp", None, None), mask.shape)
+          if isinstance(mask, DTensor) else None)
+    return shard_map_compat(_sdpa, mesh, (pq, pq, pq, pm), pq)(q, k, v, mask)
+
+
+def _sdpa(q, k, v, mask):
+    hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", upcast(q), upcast(k)) / math.sqrt(hd)
     scores = scores.masked_fill(~mask[:, None], NEG)
     w = torch.softmax(scores, dim=-1).to(q.dtype)

@@ -17,6 +17,12 @@ reference's tree, its leaves in the reference's order (``jax.tree.leaves``
 sorts dict keys at every level).  Checkpoints, the optimizers (which
 update each reference leaf as one tensor, ``reference_leaves``) and the
 gradient tests all use this one mapping.
+
+``reference_logical`` gives a leaf's logical sharding axes, the
+reference's ``Param.logical`` of ``layers.py``, ``attention.py``,
+``mamba.py``, ``rwkv.py``, ``moe.py``, ``transformer.py`` and
+``model.py`` gathered in one table (``LOGICAL``); a stacked leaf's axes
+begin with None, as ``transformer.stack_defs`` prepends it.
 """
 from __future__ import annotations
 
@@ -102,6 +108,70 @@ def reference_leaves(cfg, names) -> list[tuple[tuple[str, ...], list[str], bool]
         rows = sorted(leaves[path], key=lambda r: -1 if r[0] is None else r[0])
         out.append((path, [name for _, name in rows], rows[0][0] is not None))
     return out
+
+
+_MLP = {"w1": ("fsdp", "tp"), "w3": ("fsdp", "tp"), "w2": ("tp", "fsdp")}
+_ATTN = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+         "wo": ("tp", "fsdp"), "q_norm": (None,), "k_norm": (None,)}
+# the reference's Param.logical of every leaf, by where it sits in a layer
+LOGICAL = {
+    "embed": {"tok": ("tp", "fsdp"), "out": ("fsdp", "tp"), "final_norm": (None,)},
+    "patch_proj": ("fsdp", None),
+    "block": {"norm1": (None,), "norm2": (None,), "norm_x": (None,)},
+    "xattn": _ATTN,
+    "mixer": {
+        "attn": _ATTN,
+        "mamba": {"in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"),
+                  "wB": ("fsdp", "tp"), "wC": ("fsdp", "tp"), "w_dt": ("fsdp", "tp"),
+                  "dt_bias": (None,), "D": (None,), "out_proj": ("tp", "fsdp")},
+        "rwkv": {"mix": (None, None), "wr": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+                 "wv": ("fsdp", "tp"), "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp"),
+                 "w0": (None,), "w_lora_a": ("fsdp", None), "w_lora_b": (None, "fsdp"),
+                 "u": (None, None), "ln_out": (None,)},
+    },
+    "ffn": {
+        "dense": _MLP,
+        "moe": {"router": (None, None), "w1": ("tp", "fsdp", None),
+                "w3": ("tp", "fsdp", None), "w2": ("tp", None, "fsdp")},
+        "rwkv_cm": {"mix": (None, None), "wk": ("fsdp", "tp"), "wv": ("tp", "fsdp"),
+                    "wr": ("fsdp", None)},
+    },
+}
+
+
+def _layer_kinds(cfg, path):
+    """``(mixer kind, FFN kind, the path inside the layer)`` of a layer
+    leaf's path."""
+    kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
+    if path[0] == "blocks":
+        i = int(path[1][1:])
+        return kinds[i], ffns[i], path[2:]
+    if path[0] == "encoder":
+        return "attn", "dense", path[1:]
+    li = cfg.n_blocks * cfg.superblock + int(path[0][3:])
+    return kinds[li % cfg.superblock], ffns[li % cfg.superblock], path[1:]
+
+
+def reference_logical(cfg, path) -> tuple:
+    """The logical axes of the reference's leaf at ``path`` (a
+    :func:`reference_leaves` path), the stack axis included (None) for a
+    ``blocks`` or ``encoder`` leaf."""
+    if path[0] == "embed":
+        return LOGICAL["embed"][path[1]]
+    if path[0] == "patch_proj":
+        return LOGICAL["patch_proj"]
+    kind, ffn, rest = _layer_kinds(cfg, path)
+    head = (None,) if path[0] in ("blocks", "encoder") else ()
+    if len(rest) == 1:
+        return head + LOGICAL["block"][rest[0]]
+    if rest[0] == "xattn":
+        return head + LOGICAL["xattn"][rest[1]]
+    if rest[0] == "mixer":
+        mixer = "attn" if kind in ("attn", "local", "global") else kind
+        return head + LOGICAL["mixer"][mixer][rest[1]]
+    if rest[1] == "dense":                       # arctic's dense residual
+        return head + _MLP[rest[2]]
+    return head + LOGICAL["ffn"][ffn][rest[1]]
 
 
 def arrays_from_params(cfg, state: Mapping) -> dict:

@@ -15,6 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .sharding import (DTensor, Partial, Replicate, Shard, axes_for_mesh, placements_for,
+                       proj, shard_map_compat)
+
 # padded vocab rows read this logit (the reference's mask value)
 PAD_LOGIT = -1e30
 
@@ -45,8 +48,9 @@ def rope(x, positions, theta: float = 1e4):
 
 
 def swiglu(x, w1, w3, w2):
-    """Gated MLP: ``(silu(x w1) * (x w3)) w2``."""
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    """Gated MLP: ``(silu(x w1) * (x w3)) w2``, each product placed as on a
+    mesh (``sharding.proj``)."""
+    return proj(F.silu(proj(x, w1)) * proj(x, w3), w2)
 
 
 class Init:
@@ -106,12 +110,46 @@ class Embedding(nn.Module):
         self.final_norm = init.ones(cfg.d_model)
 
     def embed(self, tokens):
-        return self.tok[tokens]
+        if not isinstance(self.tok, DTensor):
+            return self.tok[tokens]
+        return vocab_parallel_embed(self.tok, tokens)
 
     def logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        lg = x @ (self.tok.T if self.cfg.tied_embeddings else self.out)
+        lg = proj(x, self.tok.T if self.cfg.tied_embeddings else self.out)
         return mask_padded_vocab(self.cfg, lg)
+
+
+def vocab_parallel_embed(tok, tokens):
+    """The rows of a DTensor table ``tok`` ``(V, D)`` for ``tokens`` ``(B,
+    S)``, each rank looking up the tokens of its batch rows in its slice
+    of the vocab (Megatron's parallel embedding, under ``local_map``:
+    DTensor's sharding rule for an indexed read, and for its gradient's
+    indexed write, differs between torch versions).  Rows of another
+    rank's slice are zero here; the result is partial over 'model' until
+    the caller reduces it.  Where the vocab is not split the lookup is the
+    plain one."""
+    mesh = tok.device_mesh
+    axes = axes_for_mesh(mesh)
+    model = mesh.mesh_dim_names.index("model")
+    pt = placements_for(mesh, axes, ("tp", None), tok.shape)
+    pi = placements_for(mesh, axes, ("fsdp", None), tokens.shape)
+    split = isinstance(pt[model], Shard) and mesh.size(model) > 1
+    out = [p if m != model else (Partial() if split else Replicate())
+           for m, p in enumerate(pi)]
+    grad = [p if m == model else (Partial() if isinstance(pi[m], Shard) else Replicate())
+            for m, p in enumerate(pt)]
+
+    def body(t, ids):
+        if not split:
+            return t[ids]
+        first = mesh.get_coordinate()[model] * t.shape[0]
+        rel = ids.long() - first
+        hit = (rel >= 0) & (rel < t.shape[0])
+        rows = t[rel.clamp(0, t.shape[0] - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=t.dtype))
+
+    return shard_map_compat(body, mesh, (pt, pi), out, (grad, pi))(tok, tokens)
 
 
 def mask_padded_vocab(cfg, lg):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import upcast
+from .sharding import DTensor, local_region
 
 LOG_DECAY_BOUND = 2.5
 # a chunk's decay factors reach exp(LOG_DECAY_BOUND * chunk); at 32
@@ -41,7 +42,26 @@ def bounded_log_decay(raw):
     return -LOG_DECAY_BOUND * torch.sigmoid(upcast(raw))
 
 
+_HEADS = ("fsdp", None, "tp", None)
+_STATE = ("fsdp", "tp", None, None)
+
+
 def chunked_gla(r, k, v, log_w, *, chunk: int, u=None, state0=None):
+    """Chunked gated linear attention (:func:`_chunked_gla`).  On a mesh it
+    runs on each rank's batch rows and heads (the reference keeps the head
+    dim ``tp``-sharded through the chunk math; DTensor has no sharding rule
+    for its batched products over two split dims)."""
+    if not isinstance(r, DTensor):
+        return _chunked_gla(r, k, v, log_w, chunk=chunk, u=u, state0=state0)
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    return local_region(
+        lambda r, k, v, lw, u, s0: _chunked_gla(r, k, v, lw, chunk=chunk, u=u, state0=s0),
+        (r, k, v, log_w, u, state0), (_HEADS, _HEADS, _HEADS, _HEADS, ("tp", None), _STATE),
+        [(_HEADS, (b, s, h, dv)), (_STATE, (b, h, dk, dv))])
+
+
+def _chunked_gla(r, k, v, log_w, *, chunk: int, u=None, state0=None):
     """Chunked gated linear attention.
 
     ``r``, ``k``: ``(B, S, H, dk)``; ``v``: ``(B, S, H, dv)``; ``log_w``:
@@ -100,7 +120,16 @@ def gla_decode(r, k, v, log_w, state, u=None):
     """The exact one-token recurrence.  ``r``, ``k``: ``(B, H, dk)``;
     ``v``: ``(B, H, dv)``; ``log_w``: ``(B, H, dk or 1)``; ``state``:
     ``(B, H, dk, dv)`` float32.  Returns ``(y (B, H, dv) in r's dtype,
-    new state)``."""
+    new state)``; on a mesh, per rank's batch rows and heads."""
+    if isinstance(r, DTensor):
+        heads = ("fsdp", "tp", None)
+        return local_region(_gla_decode, (r, k, v, log_w, state, u),
+                            (heads, heads, heads, heads, _STATE, ("tp", None)),
+                            [(heads, tuple(v.shape)), (_STATE, tuple(state.shape))])
+    return _gla_decode(r, k, v, log_w, state, u)
+
+
+def _gla_decode(r, k, v, log_w, state, u=None):
     r32, k32, v32 = upcast(r), upcast(k), upcast(v)
     w = torch.exp(upcast(log_w))
     y = torch.einsum("bhd,bhdv->bhv", r32, state)

@@ -16,6 +16,7 @@ from torch import nn
 
 from .layers import Init
 from .linear_attn import bounded_log_decay, chunked_gla, gla_decode
+from .sharding import constrain, merge_last, proj, split_last
 
 CONV_K = 4
 
@@ -44,18 +45,17 @@ class Mamba(nn.Module):
         """C (as r), B (as k), the conv output as v ``(..., H, hd)`` and the
         scalar log decay ``(..., H, 1)``."""
         cfg = self.cfg
-        lead = x.shape[:-1]
         h = cfg.mamba_expand * cfg.d_model // cfg.mamba_head_dim
-        bm = (x @ self.wB).reshape(lead + (h, cfg.mamba_d_state))
-        cm = (x @ self.wC).reshape(lead + (h, cfg.mamba_d_state))
-        v = xin.reshape(lead + (h, cfg.mamba_head_dim))
-        log_a = bounded_log_decay(x @ self.w_dt + self.dt_bias).reshape(lead + (h, 1))
+        bm = split_last(proj(x, self.wB), h, cfg.mamba_d_state)
+        cm = split_last(proj(x, self.wC), h, cfg.mamba_d_state)
+        v = split_last(xin, h, cfg.mamba_head_dim)
+        log_a = split_last(bounded_log_decay(proj(x, self.w_dt) + self.dt_bias), h, 1)
         return cm, bm, v, log_a
 
     def _out(self, y, v, z):
         """The ``D`` skip, the ``silu(z)`` gate and the out-projection."""
         y = y + self.D[:, None] * v
-        return (y.reshape(z.shape) * F.silu(z)) @ self.out_proj
+        return proj(merge_last(y) * F.silu(z), self.out_proj)
 
     def forward(self, x, conv_prev=None, state0=None):
         """``(B, S, D)``; ``conv_prev`` ``(B, CONV_K - 1, di)`` (zeros if
@@ -63,7 +63,8 @@ class Mamba(nn.Module):
         ``(out, the conv's last CONV_K - 1 inputs, final state float32)``."""
         b, s, _ = x.shape
         di = self.cfg.mamba_expand * self.cfg.d_model
-        xin, z = (x @ self.in_proj).split(di, dim=-1)
+        xin, z = proj(x, self.in_proj).split(di, dim=-1)
+        xin = constrain(xin, None, ("fsdp", None, "tp"))
         if conv_prev is None:
             conv_prev = torch.zeros(b, CONV_K - 1, di, dtype=x.dtype, device=x.device)
         xp = torch.cat([conv_prev, xin], dim=1)
@@ -77,7 +78,7 @@ class Mamba(nn.Module):
         """One token ``(B, D)``.  Returns ``(out (B, D), new conv inputs,
         new state)``."""
         di = self.cfg.mamba_expand * self.cfg.d_model
-        xin, z = (x1 @ self.in_proj).split(di, dim=-1)
+        xin, z = proj(x1, self.in_proj).split(di, dim=-1)
         xp = torch.cat([conv_prev, xin[:, None]], dim=1)          # (B, CONV_K, di)
         xin = F.silu(sum(xp[:, j] * self.conv_w[j] for j in range(CONV_K)))
         cm, bm, v, log_a = self._heads(x1, xin)

@@ -17,6 +17,7 @@ from torch import nn
 
 from .layers import Init, rms_norm
 from .linear_attn import bounded_log_decay, chunked_gla, gla_decode
+from .sharding import constrain, merge_last, proj, split_last
 
 DECAY_LORA = 64
 
@@ -55,14 +56,14 @@ class TimeMix(nn.Module):
         """r, k, v (``(..., H, hd)``), the gate and the bounded log decay of
         the mixed streams."""
         hd = self.cfg.rwkv_head_dim
-        heads = x.shape[:-1] + (x.shape[-1] // hd, hd)
+        h = x.shape[-1] // hd
         xr, xk, xv, xg, xw = (_mix(x, shifted, self.mix[i]) for i in range(5))
-        r = (xr @ self.wr).reshape(heads)
-        k = (xk @ self.wk).reshape(heads)
-        v = (xv @ self.wv).reshape(heads)
-        g = F.silu(xg @ self.wg)
-        w_raw = self.w0 + (xw @ self.w_lora_a) @ self.w_lora_b
-        return r, k, v, g, bounded_log_decay(w_raw).reshape(heads)
+        r = split_last(proj(xr, self.wr), h, hd)
+        k = split_last(proj(xk, self.wk), h, hd)
+        v = split_last(proj(xv, self.wv), h, hd)
+        g = F.silu(proj(xg, self.wg))
+        w_raw = self.w0 + proj(proj(xw, self.w_lora_a), self.w_lora_b)
+        return r, k, v, g, split_last(bounded_log_decay(w_raw), h, hd)
 
     def _out(self, y, g):
         """Per-head RMS norm (a ones weight in ``y``'s dtype), the gate,
@@ -70,8 +71,8 @@ class TimeMix(nn.Module):
         cfg = self.cfg
         y = rms_norm(y, torch.ones(cfg.rwkv_head_dim, dtype=y.dtype, device=y.device),
                      cfg.norm_eps)
-        y = y.reshape(g.shape) * g
-        return rms_norm(y, self.ln_out, cfg.norm_eps) @ self.wo
+        y = merge_last(y) * g
+        return proj(rms_norm(y, self.ln_out, cfg.norm_eps), self.wo)
 
     def forward(self, x, prev=None, state0=None):
         """``(B, S, D)``, the shift's previous input ``prev`` ``(B, D)``
@@ -80,6 +81,8 @@ class TimeMix(nn.Module):
         if prev is None:
             prev = torch.zeros_like(x[:, 0])
         r, k, v, g, log_w = self._project(x, _token_shift(x, prev))
+        r = constrain(r, None, ("fsdp", None, "tp", None))
+        k = constrain(k, None, ("fsdp", None, "tp", None))
         y, state = chunked_gla(r, k, v, log_w, chunk=self.cfg.la_chunk, u=self.u,
                                state0=state0)
         return self._out(y, g), x[:, -1], state
@@ -106,8 +109,8 @@ class ChannelMix(nn.Module):
     def _mixed(self, x, shifted):
         xk = _mix(x, shifted, self.mix[0])
         xr = _mix(x, shifted, self.mix[1])
-        k = torch.square(F.relu(xk @ self.wk))
-        return torch.sigmoid(xr @ self.wr) * (k @ self.wv)
+        k = torch.square(F.relu(proj(xk, self.wk)))
+        return torch.sigmoid(proj(xr, self.wr)) * proj(k, self.wv)
 
     def forward(self, x, prev=None):
         """``(B, S, D)`` -> ``(out, x[:, -1])``."""

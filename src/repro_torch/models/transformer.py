@@ -22,11 +22,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import Attention
+from .attention import Attention, cache_logical, write_prefix
 from .layers import MLP, Init, rms_norm
 from .mamba import CONV_K, Mamba
 from .moe import MoE
 from .rwkv import ChannelMix, TimeMix
+from .sharding import DTensor, constrain
 
 ATTENTION = ("attn", "local", "global")
 MIXERS = ATTENTION + ("mamba", "rwkv")
@@ -38,6 +39,43 @@ def layer_plan(cfg) -> list[tuple[str, str]]:
     kinds, ffns = cfg.layer_kinds(), cfg.ffn_kinds()
     return [(kinds[li % cfg.superblock], ffns[li % cfg.superblock])
             for li in range(cfg.n_layers)]
+
+
+def block_cache_defs(cfg, kind: str, ffn_kind: str, batch: int, cache_len: int,
+                     cross_len: int = 0) -> dict:
+    """``name -> (shape, float32 or not, logical axes)`` of one layer's
+    cache: ``k``/``v`` ``(B, slots, Hk, hd)`` (a ring of ``min(window,
+    cache_len)`` slots for a local layer); Mamba's ``conv`` ``(B, CONV_K -
+    1, di)`` and ``state`` ``(B, H, d_state, hd)``; RWKV's ``state`` ``(B,
+    H, hd, hd)`` and ``shift_tm``/``shift_cm`` ``(B, D)``; ``xk``/``xv``
+    ``(B, cross_len, Hk, hd)`` for cross-attention.  Recurrent states are
+    float32 (float64 in a float64 model), the rest in the activation
+    dtype.  The logical axes are the reference's ``block_cache_defs``."""
+    d, hd, hk = cfg.d_model, cfg.hd, cfg.n_kv_heads
+    out = {}
+    if kind in ATTENTION:
+        if kind == "local" and cfg.local_window:
+            out["k"] = out["v"] = ((batch, min(cfg.local_window, cache_len), hk, hd), False,
+                                   ("fsdp", None, None, None))
+        else:
+            out["k"] = out["v"] = ((batch, cache_len, hk, hd), False,
+                                   ("fsdp", "seq", None, None))
+    elif kind == "mamba":
+        di = cfg.mamba_expand * d
+        out["conv"] = ((batch, CONV_K - 1, di), False, ("fsdp", None, "tp"))
+        out["state"] = ((batch, di // cfg.mamba_head_dim, cfg.mamba_d_state,
+                         cfg.mamba_head_dim), True, ("fsdp", "tp", None, None))
+    else:
+        h = d // cfg.rwkv_head_dim
+        out["state"] = ((batch, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim), True,
+                        ("fsdp", "tp", None, None))
+        out["shift_tm"] = ((batch, d), False, ("fsdp", None))
+    if ffn_kind == "rwkv_cm":
+        out["shift_cm"] = ((batch, d), False, ("fsdp", None))
+    if cross_len:
+        out["xk"] = out["xv"] = ((batch, cross_len, hk, hd), False,
+                                 ("fsdp", None, None, None))
+    return out
 
 
 class Block(nn.Module):
@@ -73,34 +111,11 @@ class Block(nn.Module):
             self.ffn = ChannelMix(cfg, init)
 
     def cache_defs(self, batch: int, cache_len: int, cross_len: int = 0) -> dict:
-        """``name -> (shape, float32 or not)`` of this layer's cache:
-        ``k``/``v`` ``(B, slots, Hk, hd)`` (a ring of ``min(window,
-        cache_len)`` slots for a local layer); Mamba's ``conv`` ``(B,
-        CONV_K - 1, di)`` and ``state`` ``(B, H, d_state, hd)``; RWKV's
-        ``state`` ``(B, H, hd, hd)`` and ``shift_tm``/``shift_cm`` ``(B,
-        D)``; ``xk``/``xv`` ``(B, cross_len, Hk, hd)`` for cross-attention.
-        Recurrent states are float32 (float64 in a float64 model), the rest
-        in the activation dtype."""
-        cfg = self.cfg
-        d, hd, hk = cfg.d_model, cfg.hd, cfg.n_kv_heads
-        out = {}
-        if self.kind in ATTENTION:
-            slots = min(self.window, cache_len) if self.window else cache_len
-            out["k"] = out["v"] = ((batch, slots, hk, hd), False)
-        elif self.kind == "mamba":
-            di = cfg.mamba_expand * d
-            out["conv"] = ((batch, CONV_K - 1, di), False)
-            out["state"] = ((batch, di // cfg.mamba_head_dim, cfg.mamba_d_state,
-                             cfg.mamba_head_dim), True)
-        else:
-            h = d // cfg.rwkv_head_dim
-            out["state"] = ((batch, h, cfg.rwkv_head_dim, cfg.rwkv_head_dim), True)
-            out["shift_tm"] = ((batch, d), False)
-        if self.ffn_kind == "rwkv_cm":
-            out["shift_cm"] = ((batch, d), False)
-        if cross_len:
-            out["xk"] = out["xv"] = ((batch, cross_len, hk, hd), False)
-        return out
+        """``name -> (shape, float32 or not)`` of this layer's cache
+        (:func:`block_cache_defs`)."""
+        return {name: (shape, f32) for name, (shape, f32, _) in
+                block_cache_defs(self.cfg, self.kind, self.ffn_kind, batch, cache_len,
+                                 cross_len).items()}
 
     def forward(self, x, cache=None, enc_out=None):
         """Train/prefill over ``(B, S, D)``.  With ``cache`` (this layer's
@@ -113,7 +128,17 @@ class Block(nn.Module):
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         if self.kind in ATTENTION:
             out, k, v = self.mixer(h, window=self.window, causal=self.causal)
-            if cache is not None:
+            if cache is not None and isinstance(cache["k"], DTensor):
+                logical = cache_logical(self.window)
+                if self.window:
+                    # the newest min(S, slots) positions, rolled so that
+                    # position p lands in slot p % slots
+                    first = max(k.shape[1] - cache["k"].shape[1], 0)
+                    roll = first % cache["k"].shape[1]
+                    k, v = k[:, first:].roll(roll, dims=1), v[:, first:].roll(roll, dims=1)
+                write_prefix(cache["k"], logical, k)
+                write_prefix(cache["v"], logical, v)
+            elif cache is not None:
                 s, slots = k.shape[1], cache["k"].shape[1]
                 if self.window:
                     pos = torch.arange(max(s - slots, 0), s, device=k.device)
@@ -146,7 +171,7 @@ class Block(nn.Module):
                 cache["shift_cm"].copy_(prev_cm)
         else:
             f = self.ffn(h2)
-        return x + f
+        return constrain(x + f, None, ("fsdp", None, None))
 
     def decode(self, x, cache, pos):
         """One token ``(B, 1, D)`` at ``pos`` ``(B,)``; the cache is updated
@@ -176,4 +201,4 @@ class Block(nn.Module):
             f = f[:, None]
         else:
             f = self.ffn(h2)
-        return x + f
+        return constrain(x + f, None, ("fsdp", None, None))

@@ -66,6 +66,7 @@ from ..core.queries_torch import (
 )
 from ..core.streaming import DeviceMirror, StreamingIndex
 from ..kernels import ops as kops
+from ..models.sharding import full
 from .faults import FaultError
 from .journal import GraftJournal, JournalError
 from .resilience import (
@@ -103,11 +104,11 @@ class LMServer:
         if cache_len < s + max_new - 1:
             raise ValueError(f"cache_len {cache_len} < {s + max_new - 1} positions")
         lg, cache = self.lm.prefill(tokens, cache_len)
-        out = [lg[:, -1].argmax(dim=-1)]
+        out = [full(lg)[:, -1].argmax(dim=-1)]
         for t in range(max_new - 1):
             pos = torch.full((b,), s + t, dtype=torch.int64, device=self.lm.device)
             lg, cache = self.lm.decode_step(out[-1][:, None], cache, pos)
-            out.append(lg[:, 0].argmax(dim=-1))
+            out.append(full(lg)[:, 0].argmax(dim=-1))
         return torch.stack(out, dim=1).cpu().numpy()
 
 

@@ -19,8 +19,17 @@ arithmetic (float64 for a float64 model, a witness), the new parameter
 bias correction ``1 - b ** t`` in float32 from the global step the caller
 passes (``t = step + 1``, so a resumed run goes on correcting where it
 stopped).  ``torch.optim.AdamW`` is not used: its foreach and fused paths
-round differently.  The reference's ``state_specs`` (PartitionSpecs of
-the state for a mesh) has no counterpart on one card.
+round differently.
+
+``state_specs`` is the reference's: the logical axes of each leaf's state
+from the leaf's own (a list of logical tuples in leaf order, the stack
+axis included), the state sharded exactly like the parameter it tracks:
+AdamW's ``m`` and ``v`` as the leaf, Adafactor's ``row`` without its last
+axis and ``col`` without its second last, its ``v`` as the leaf.  Like
+the reference it decides row/col by the number of axes, not by
+``factored``: a leaf with a dim of 1 (a norm scale of one block) gets
+``v`` state and row/col specs (``train.trainer.init_state`` places such a
+``v`` like its leaf).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ def _wide(dtype):
 class Optimizer:
     init_leaf: Callable       # p -> state dict
     update_leaf: Callable     # (g, s, p, step) -> (new p, new s)
+    state_specs: Callable     # leaf logical axes (list) -> state logical axes (list)
 
     def init(self, params):
         """The state of a list of leaves (reference order)."""
@@ -71,7 +81,10 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
         newp = p32 - stp - lr * wd * p32
         return newp.to(p.dtype), {"m": m, "v": v}
 
-    return Optimizer(init_leaf, update_leaf)
+    def state_specs(pspecs):
+        return [{"m": tuple(sp), "v": tuple(sp)} for sp in pspecs]
+
+    return Optimizer(init_leaf, update_leaf, state_specs)
 
 
 def adafactor(lr: float = 1e-4, decay: float = 0.99,
@@ -111,7 +124,17 @@ def adafactor(lr: float = 1e-4, decay: float = 0.99,
         newp = p.to(u.dtype, copy=True).sub_(u.mul_(lr))    # p32 - lr * u
         return newp.to(p.dtype), new_s
 
-    return Optimizer(init_leaf, update_leaf)
+    def state_specs(pspecs):
+        out = []
+        for sp in pspecs:
+            st = tuple(sp)
+            if len(st) >= 2:
+                out.append({"row": st[:-1], "col": st[:-2] + st[-1:]})
+            else:
+                out.append({"v": st})
+        return out
+
+    return Optimizer(init_leaf, update_leaf, state_specs)
 
 
 def get_optimizer(name: str, lr: float = 1e-4) -> Optimizer:

@@ -36,7 +36,8 @@ def _port_files():
     # collective_ranks.py: the rank entry module that spawned test ranks
     # import; examples/torch_*.py: the example twins
     return (sorted(PORT.rglob("*.py")) + sorted((REPO / "examples").glob("torch_*.py"))
-            + [REPO / "chip_smoke.py", REPO / "tests" / "collective_ranks.py"])
+            + [REPO / "chip_smoke.py", REPO / "tests" / "collective_ranks.py",
+               REPO / "tests" / "mesh_ranks.py"])
 
 
 def test_port_files_cover_the_process_group_modules():
@@ -71,6 +72,18 @@ def test_port_files_cover_training_and_launch():
     mods = [PORT / "train" / f"{name}.py" for name in ("optimizer", "trainer", "checkpoint")]
     mods += [PORT / "data" / "pipeline.py", REPO / "examples" / "torch_train_lm.py"]
     mods += [PORT / "launch" / f"{name}.py" for name in ("train", "serve")]
+    for path in mods:
+        assert path in files and path.exists()
+
+
+def test_port_files_cover_the_mesh_and_the_dry_run():
+    """The sharding rules, the meshes, the dry run, its report, the
+    roofline module and the mesh tests' rank module (spawned ranks import
+    it) are held to the port's import rule."""
+    files = set(_port_files())
+    mods = [PORT / "models" / "sharding.py", PORT / "roofline.py",
+            REPO / "tests" / "mesh_ranks.py"]
+    mods += [PORT / "launch" / f"{name}.py" for name in ("mesh", "dryrun", "report")]
     for path in mods:
         assert path in files and path.exists()
 
@@ -118,7 +131,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.metrics, repro_torch.configs, repro_torch.models, "
         "repro_torch.models.convert, repro_torch.train.optimizer, "
         "repro_torch.train.trainer, repro_torch.train.checkpoint, "
-        "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.launch.serve\n"
+        "repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.launch.serve, "
+        "repro_torch.models.sharding, repro_torch.roofline, repro_torch.launch.mesh, "
+        "repro_torch.launch.dryrun, repro_torch.launch.report\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
