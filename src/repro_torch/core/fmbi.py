@@ -53,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import tracing
 from .nodetable import NodeTable, NodeView
 from .pagestore import IOStats, PageStore, branch_capacity, leaf_capacity
 from .splittree import (
@@ -597,15 +598,16 @@ def bulk_load(
     rng = rng or np.random.default_rng(0)
     store = store or PageStore(buffer_pages)
     d = points.shape[1]
-    root = _bulk_load_tree(
-        points,
-        buffer_pages,
-        store,
-        rng,
-        charge_source_read=charge_source_read,
-        step2=step2,
-    )
-    return Index(root, d, leaf_capacity(d), branch_capacity(d), store, points)
+    with tracing.span("bulk_load"):
+        root = _bulk_load_tree(
+            points,
+            buffer_pages,
+            store,
+            rng,
+            charge_source_read=charge_source_read,
+            step2=step2,
+        )
+        return Index(root, d, leaf_capacity(d), branch_capacity(d), store, points)
 
 
 def _bulk_load_tree(
@@ -629,7 +631,8 @@ def _bulk_load_tree(
     if p_total <= min(buffer_pages, alpha * c_b) or n <= c_l:
         if charge_source_read:
             store.read_run(p_total)
-        entries = refine_subspace(points, np.arange(n), c_l, c_b, store)
+        with tracing.span("bulk_load.refine"):
+            entries = refine_subspace(points, np.arange(n), c_l, c_b, store)
         if len(entries) == 1:
             return entries[0]
         page = store.alloc()
@@ -637,65 +640,67 @@ def _bulk_load_tree(
         return Node(mbb=mbb_of(points), page_id=page, children=entries)
 
     # ---- Step 1: initial partitioning / Major SplitTree -----------------
-    sample_pages = alpha * c_b
-    page_of_point = np.arange(n) // c_l
-    perm = rng.permutation(p_total)
-    sampled = perm[:sample_pages]
-    store.read_run(sample_pages)  # random page reads
-    samp_mask = np.zeros(p_total, dtype=bool)
-    samp_mask[sampled] = True
-    samp_sel = samp_mask[page_of_point]
-    samp_idx = np.flatnonzero(samp_sel)
-    # a sampled trailing partial page can leave the sample short; top up so
-    # that Step 1 operates on exactly alpha*C_B full pages
-    need = sample_pages * c_l
-    if len(samp_idx) < need:
-        extra = np.flatnonzero(~samp_sel)[: need - len(samp_idx)]
-        samp_sel[extra] = True
+    with tracing.span("bulk_load.route"):
+        sample_pages = alpha * c_b
+        page_of_point = np.arange(n) // c_l
+        perm = rng.permutation(p_total)
+        sampled = perm[:sample_pages]
+        store.read_run(sample_pages)  # random page reads
+        samp_mask = np.zeros(p_total, dtype=bool)
+        samp_mask[sampled] = True
+        samp_sel = samp_mask[page_of_point]
         samp_idx = np.flatnonzero(samp_sel)
+        # a sampled trailing partial page can leave the sample short; top up
+        # so that Step 1 operates on exactly alpha*C_B full pages
+        need = sample_pages * c_l
+        if len(samp_idx) < need:
+            extra = np.flatnonzero(~samp_sel)[: need - len(samp_idx)]
+            samp_sel[extra] = True
+            samp_idx = np.flatnonzero(samp_sel)
 
-    mst, _, samp_assign = build_group_median_tree(
-        points[samp_idx], n_groups=c_b, group_pages=alpha, page_points=c_l
-    )
+        mst, _, samp_assign = build_group_median_tree(
+            points[samp_idx], n_groups=c_b, group_pages=alpha, page_points=c_l
+        )
 
-    # ---- Step 2: distribute remaining pages -----------------------------
-    rest_idx = np.flatnonzero(~samp_sel)
-    store.read_run(-(-len(rest_idx) // c_l))
-    assign = (
-        mst.route(points[rest_idx])
-        if len(rest_idx)
-        else np.zeros(0, dtype=np.int32)
-    )
-    distribute = (
-        _distribute_scalar if step2 == "scalar" else _distribute_vectorized
-    )
-    sub_idx, counts, disk_pages, active = distribute(
-        assign, rest_idx, samp_idx, samp_assign,
-        c_b, c_l, buffer_pages, alpha, store,
-    )
+        # ---- Step 2: distribute remaining pages -------------------------
+        rest_idx = np.flatnonzero(~samp_sel)
+        store.read_run(-(-len(rest_idx) // c_l))
+        assign = (
+            mst.route(points[rest_idx])
+            if len(rest_idx)
+            else np.zeros(0, dtype=np.int32)
+        )
+        distribute = (
+            _distribute_scalar if step2 == "scalar" else _distribute_vectorized
+        )
+        sub_idx, counts, disk_pages, active = distribute(
+            assign, rest_idx, samp_idx, samp_assign,
+            c_b, c_l, buffer_pages, alpha, store,
+        )
 
     # ---- Step 3: refine sparse subspaces (actives first: pages are free)
     pages_of = -(-counts // c_l)
     subspace_nodes: list[Optional[Node]] = [None] * c_b
     dense: list[int] = []
-    for s in np.argsort(~active, kind="stable"):
-        s = int(s)
-        if pages_of[s] > buffer_pages:
-            dense.append(s)
-            continue
-        if len(sub_idx[s]) == 0:
-            continue
-        if not active[s]:
-            store.read_run(int(disk_pages[s]))  # reload flushed pages
-        entries = refine_subspace(points, sub_idx[s], c_l, c_b, store)
-        node_mbb = (
-            mbb_of(points[sub_idx[s]]) if len(sub_idx[s]) else np.zeros((2, d))
-        )
-        if len(entries) == 1:
-            subspace_nodes[s] = entries[0]  # already has its own page
-        else:
-            # page deferred: assigned after Step 4 merging
-            subspace_nodes[s] = Node(mbb=node_mbb, page_id=-1, children=entries)
+    with tracing.span("bulk_load.refine"):
+        for s in np.argsort(~active, kind="stable"):
+            s = int(s)
+            if pages_of[s] > buffer_pages:
+                dense.append(s)
+                continue
+            if len(sub_idx[s]) == 0:
+                continue
+            if not active[s]:
+                store.read_run(int(disk_pages[s]))  # reload flushed pages
+            entries = refine_subspace(points, sub_idx[s], c_l, c_b, store)
+            node_mbb = (
+                mbb_of(points[sub_idx[s]]) if len(sub_idx[s]) else np.zeros((2, d))
+            )
+            if len(entries) == 1:
+                subspace_nodes[s] = entries[0]  # already has its own page
+            else:
+                # page deferred: assigned after Step 4 merging
+                subspace_nodes[s] = Node(mbb=node_mbb, page_id=-1, children=entries)
 
     # ---- Step 4: conceptual merging, then write the root-entry pages ----
     merge_candidates: list[Optional[Node]] = [

@@ -1,7 +1,7 @@
 """Device query engine of the PyTorch port: window and k-NN batches.
 
 The port of the JAX package's device engine (``repro/core/queries_jax.py``):
-the fused engine (``_window_batch_fused`` and ``_knn_batch_fused`` with the
+the fused engine (``_window_batch_fused`` and ``_knn_batch`` with the
 functions under them) and the first-generation one (``fused=False``).  A
 ``NodeTable`` is exported once into fixed-shape tensors on the card
 (:class:`DeviceTable`); each query batch then runs on the device, and
@@ -53,6 +53,13 @@ launches (or raises), on the CPU the same function runs as its plain
 version.  Entry points export to ``cuda`` unless the caller passes
 ``device="cpu"``; without a card they raise.
 
+Tracing (``repro_torch.tracing``), on the fused engine only: spans
+``engine.window`` / ``engine.knn`` around a batch, ``engine.wait`` around
+each blocking scalar read, ``engine.answers`` around the hand-off of the
+answers to the host; counters of window and k-NN batches, pairs, pair
+chunks, ids, k-NN rounds and requeued queries, and ``export`` /
+``export.layout`` spans around ``DeviceTable.from_table``.
+
 Parity contract (as the JAX engine's): windows return exactly the NumPy
 engine's id sets for float32-representable inputs; k-NN returns the exact
 k nearest under float32 distance arithmetic, with ids that may differ only
@@ -67,6 +74,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import ops as kops
 from .nodetable import NodeTable, compress_boxes_bf16
 
@@ -260,34 +268,36 @@ class DeviceTable:
         columns stay for the window re-check, so results are unchanged.
         """
         dev = resolve_device(device)
-        lay = table.device_layout(np.asarray(points), partial=partial,
-                                  compressed=compressed)
-        n_leaves = lay["leaf_pts"].shape[0]
-        levels, terminals, levels_c = _upload_levels(
-            lay["levels"], n_leaves + len(lay["cold_rows"]), compressed, dev)
-        n_points = int(lay["leaf_counts"].sum())
-        sink = stats if stats is not None else UploadStats()
-        sink.record_export(n_leaves, n_points)
-        out = cls(
-            leaf_pts=_upload(lay["leaf_pts"], dev),
-            leaf_ids=_upload(lay["leaf_ids"], dev),
-            leaf_counts=_upload(lay["leaf_counts"], dev),
-            leaf_lo=_upload(lay["leaf_lo"], dev),
-            leaf_hi=_upload(lay["leaf_hi"], dev),
-            levels=levels,
-            terminals=terminals,
-            cold_lo=_upload(lay["cold_lo"], dev),
-            cold_hi=_upload(lay["cold_hi"], dev),
-            leaf_lo_c=_bf16(lay["leaf_lo_c"], dev) if compressed else None,
-            leaf_hi_c=_bf16(lay["leaf_hi_c"], dev) if compressed else None,
-            levels_c=levels_c,
-            n_points=n_points,
-            upload_stats=sink,
-            leaf_rows=lay["leaf_rows"],
-            cold_rows=lay["cold_rows"],
-        )
-        out.host_ids = lay["leaf_ids"]
-        return out
+        with tracing.span("export"):
+            with tracing.span("export.layout"):
+                lay = table.device_layout(np.asarray(points), partial=partial,
+                                          compressed=compressed)
+            n_leaves = lay["leaf_pts"].shape[0]
+            levels, terminals, levels_c = _upload_levels(
+                lay["levels"], n_leaves + len(lay["cold_rows"]), compressed, dev)
+            n_points = int(lay["leaf_counts"].sum())
+            sink = stats if stats is not None else UploadStats()
+            sink.record_export(n_leaves, n_points)
+            out = cls(
+                leaf_pts=_upload(lay["leaf_pts"], dev),
+                leaf_ids=_upload(lay["leaf_ids"], dev),
+                leaf_counts=_upload(lay["leaf_counts"], dev),
+                leaf_lo=_upload(lay["leaf_lo"], dev),
+                leaf_hi=_upload(lay["leaf_hi"], dev),
+                levels=levels,
+                terminals=terminals,
+                cold_lo=_upload(lay["cold_lo"], dev),
+                cold_hi=_upload(lay["cold_hi"], dev),
+                leaf_lo_c=_bf16(lay["leaf_lo_c"], dev) if compressed else None,
+                leaf_hi_c=_bf16(lay["leaf_hi_c"], dev) if compressed else None,
+                levels_c=levels_c,
+                n_points=n_points,
+                upload_stats=sink,
+                leaf_rows=lay["leaf_rows"],
+                cold_rows=lay["cold_rows"],
+            )
+            out.host_ids = lay["leaf_ids"]
+            return out
 
     @classmethod
     def from_index(cls, index, *, compressed: bool = False,
@@ -481,10 +491,12 @@ def _pair_collect(dev: DeviceTable, qlo, qhi, q_idx, leaf_idx, pair_valid):
                                      valid.to(torch.int32)) > 0
 
 
-def _window_batch_unfused(dev: DeviceTable, qlo, qhi, return_cold: bool):
+def _window_batch_unfused(dev: DeviceTable, los, his, return_cold: bool):
     """The first-generation window batch: the f32 frontier mask and each
     bucket's containment mask move to the host, which packs the ids."""
-    q0 = qlo.shape[0]
+    q0 = los.shape[0]
+    qlo = torch.from_numpy(los).to(dev.device)
+    qhi = torch.from_numpy(his).to(dev.device)
     hits = frontier_leaf_hits(dev, qlo, qhi).cpu().numpy()
     inter, cold = hits[:, : dev.n_leaves], hits[:, dev.n_leaves:]
     q_idx, leaf_idx = np.nonzero(inter)   # row-major: grouped by window
@@ -533,13 +545,29 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
     if los.shape != his.shape or los.ndim != 2 or los.shape[1] != dev.dim:
         raise ValueError(f"windows must be (Q, {dev.dim}) lo/hi pairs, got "
                          f"{los.shape} and {his.shape}")
+    if not fused:
+        return _window_batch_unfused(dev, los, his, return_cold)
+    with tracing.span("engine.window"):
+        return _window_batch_fused(dev, los, his, return_cold)
+
+
+def _wait_int(t: torch.Tensor) -> int:
+    """A device scalar read on the host, which waits there for the card."""
+    with tracing.span("engine.wait"):
+        return int(t)
+
+
+def _window_batch_fused(dev: DeviceTable, los, his, return_cold: bool):
+    """The fused window batch (the module's docstring), with its host
+    waits and the hand-off of its answers spanned, and its pairs, pair
+    chunks and ids counted."""
     q0 = los.shape[0]
     qlo = torch.from_numpy(los).to(dev.device)
     qhi = torch.from_numpy(his).to(dev.device)
-    if not fused:
-        return _window_batch_unfused(dev, qlo, qhi, return_cold)
     hits, n_pairs = _frontier_count(dev, qlo, qhi)
-    p0 = int(n_pairs)                                     # host sync
+    p0 = _wait_int(n_pairs)
+    tracing.count("engine.window_batches")
+    tracing.count("engine.pairs", p0)
     cold = hits[:, dev.n_leaves:].cpu().numpy() if return_cold else None
     if p0 == 0:
         empty = [np.zeros(0, dtype=np.int64) for _ in range(q0)]
@@ -547,16 +575,21 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
     csum = _cumsum(hits[:, : dev.n_leaves].reshape(-1))
     per_query = torch.zeros(q0, dtype=torch.int64, device=dev.device)
     parts = []
+    n_ids = 0
     for a in range(0, p0, PAIR_CHUNK):
         pc = _pow2(min(p0 - a, PAIR_CHUNK))
         ids_or, total = _fused_pack_scan(dev, qlo, qhi, csum, a, pc, p0,
                                          per_query)
-        t = int(total)                                    # host sync
+        t = _wait_int(total)
+        n_ids += t
         if t:
             parts.append(_fused_id_pack(ids_or, t))
-    all_ids = (torch.cat(parts).cpu().numpy().astype(np.int64)
-               if parts else np.zeros(0, dtype=np.int64))
-    res = np.split(all_ids, np.cumsum(per_query.cpu().numpy())[:-1])
+    tracing.count("engine.pair_chunks", -(-p0 // PAIR_CHUNK))
+    tracing.count("engine.ids", n_ids)
+    with tracing.span("engine.answers"):
+        all_ids = (torch.cat(parts).cpu().numpy().astype(np.int64)
+                   if parts else np.zeros(0, dtype=np.int64))
+        res = np.split(all_ids, np.cumsum(per_query.cpu().numpy())[:-1])
     return (res, cold) if return_cold else res
 
 
@@ -706,19 +739,23 @@ def _knn_batch(dev: DeviceTable, qs: np.ndarray, k: int,
     b0 = qs.shape[0]
     c, cap = _knn_budget(dev, k, n_candidate_leaves)
     qt = torch.from_numpy(qs).to(dev.device)
+    tracing.count("engine.knn_batches")
+    tracing.count("engine.knn_rounds")
     ids, d2k, exact = _knn_core_fused(dev, qt, k, c)
     # one sentinel row past the batch absorbs the padding slots of merges
     bufs = tuple(torch.cat([t, t[:1]]) for t in (ids, d2k, exact))
     full_scan = c >= dev.n_leaves
-    n_fail = int((~exact).sum()) if not full_scan else 0  # host sync
+    n_fail = _wait_int((~exact).sum()) if not full_scan else 0
     rounds = 0
     while n_fail and (max_rounds is None or rounds < max_rounds):
+        tracing.count("engine.knn_rounds")
+        tracing.count("engine.knn_requeued", n_fail)
         c = min(c * 2, cap)
         idx, valid, qsel = _knn_pending(qt, bufs[2][:b0], _pow2(n_fail))
         nfail = _knn_merge_round(bufs, b0, idx, valid,
                                  _knn_core_fused(dev, qsel, k, c))
         full_scan = c >= dev.n_leaves
-        n_fail = int(nfail) if not full_scan else 0       # host sync
+        n_fail = _wait_int(nfail) if not full_scan else 0
         rounds += 1
     return bufs[0][:b0], bufs[1][:b0], bufs[2][:b0], full_scan
 
@@ -796,19 +833,21 @@ def knn_query_batch_torch(dev: DeviceTable, qs, k: int, *,
         ids, d2, exact = _knn_batch_unfused(dev, qs, k, n_candidate_leaves,
                                             max_rounds)
     else:
-        ids_b, d2_b, exact_b, full_scan = _knn_batch(
-            dev, qs, k, n_candidate_leaves, max_rounds
-        )
-        m = min(k, dev.live_points())
-        ids_h = ids_b[:, :m].cpu().numpy()
-        ids = [ids_h[j].astype(np.int64) for j in range(q0)]
-        d2 = list(d2_b[:, :m].cpu().numpy()) if return_dists else None
-        if not return_exact:
-            exact = None
-        elif full_scan:  # whole leaf table scanned: vacuously exact
-            exact = np.ones(q0, dtype=bool)
-        else:
-            exact = exact_b.cpu().numpy()
+        with tracing.span("engine.knn"):
+            ids_b, d2_b, exact_b, full_scan = _knn_batch(
+                dev, qs, k, n_candidate_leaves, max_rounds
+            )
+            m = min(k, dev.live_points())
+            with tracing.span("engine.answers"):
+                ids_h = ids_b[:, :m].cpu().numpy()
+                ids = [ids_h[j].astype(np.int64) for j in range(q0)]
+                d2 = list(d2_b[:, :m].cpu().numpy()) if return_dists else None
+                if not return_exact:
+                    exact = None
+                elif full_scan:  # whole leaf table scanned: vacuously exact
+                    exact = np.ones(q0, dtype=bool)
+                else:
+                    exact = exact_b.cpu().numpy()
     out = (ids,)
     if return_dists:
         out += (d2,)

@@ -3,12 +3,14 @@
 Each launcher adds one to its kernel's count where it launches the kernel
 and nowhere else, so a run can show that its main path went through the
 kernels: zero the counts with :func:`reset`, drive the path, read them
-with :func:`counts`.  The counts are plain integers in one process-wide
-dictionary.
+with :func:`counts`.  The counts live in the port's process-wide counter
+registry (``repro_torch.tracing``), under ``launch.<kernel>``.
 """
 from __future__ import annotations
 
 import torch
+
+from .. import tracing
 
 KERNELS = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2",
            "partition_assign", "window_count_gathered", "pairwise_dist2",
@@ -16,21 +18,21 @@ KERNELS = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2",
 MAX_D = 64      # the CUDA sources stage at most this many dimensions
 INT32_MAX = 2**31 - 1
 
-_COUNTS = dict.fromkeys(KERNELS, 0)
+_KEYS = {k: "launch." + k for k in KERNELS}
 
 
 def bump(name: str) -> None:
-    _COUNTS[name] += 1
+    tracing.count(_KEYS[name])
 
 
 def counts() -> dict:
     """A copy of the launch counts."""
-    return dict(_COUNTS)
+    c = tracing.counters()
+    return {k: c.get(key, 0) for k, key in _KEYS.items()}
 
 
 def reset() -> None:
-    for k in _COUNTS:
-        _COUNTS[k] = 0
+    tracing.zero_counters("launch.")
 
 
 def check(t: torch.Tensor, what: str, dtypes, shape) -> None:

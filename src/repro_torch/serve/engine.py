@@ -45,6 +45,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import tracing
 from ..analysis import runtime as _san
 from ..core import grid_index
 from ..core.ambi import AMBI
@@ -617,71 +618,72 @@ class DeviceQueryServer:
 
         ``deadline`` overrides the server's own per-batch budget.
         """
-        los = self._validate_batch(los, "los")
-        his = self._validate_batch(his, "his")
-        if los.shape != his.shape:
-            raise ValueError(
-                f"los/his shape mismatch: {los.shape} vs {his.shape}"
-            )
-        if deadline is None:
-            deadline = self._deadline()
-        out: list[np.ndarray] = []
-        certs: list = []
-        for a, b in self._chunks(los.shape[0]):
-            runner = self._shard_runner(deadline)
-            if self.adaptive:
-                res = self._window_adaptive(los[a:b], his[a:b], deadline)
-                if self.stream is not None:
-                    res = self._merge_overlay_window(res, los[a:b], his[a:b])
-                out.extend(res)
-                certs.extend(
-                    CompletenessCertificate.intact() for _ in range(b - a)
+        with tracing.span("serve.window"):
+            los = self._validate_batch(los, "los")
+            his = self._validate_batch(his, "his")
+            if los.shape != his.shape:
+                raise ValueError(
+                    f"los/his shape mismatch: {los.shape} vs {his.shape}"
                 )
-            elif self.stream is not None:
-                res = self._window_streaming(
-                    los[a:b], his[a:b], runner, return_certs=return_certs,
-                )
-                if return_certs:
-                    res, cs = res
-                    certs.extend(cs)
-                out.extend(res)
-            elif self.sdev is not None:
-                with self.table_lock.read():
-                    res = window_query_batch_sharded(
-                        self.sdev, los[a:b], his[a:b], runner=runner,
-                        return_certs=return_certs,
-                    )
-                if return_certs:
-                    res, cs = res
-                    certs.extend(cs)
-                out.extend(res)
-            else:
-                try:
-                    with self.table_lock.read():
-                        out.extend(runner(0, lambda a=a, b=b: (
-                            window_query_batch_torch(
-                                self.dev, los[a:b], his[a:b],
-                            )
-                        )))
+            if deadline is None:
+                deadline = self._deadline()
+            out: list[np.ndarray] = []
+            certs: list = []
+            for a, b in self._chunks(los.shape[0]):
+                runner = self._shard_runner(deadline)
+                if self.adaptive:
+                    res = self._window_adaptive(los[a:b], his[a:b], deadline)
+                    if self.stream is not None:
+                        res = self._merge_overlay_window(res, los[a:b], his[a:b])
+                    out.extend(res)
                     certs.extend(
-                        CompletenessCertificate.intact()
-                        for _ in range(b - a)
+                        CompletenessCertificate.intact() for _ in range(b - a)
                     )
-                except ShardUnavailable:
-                    if not return_certs:
-                        raise
-                    out.extend(
-                        np.zeros(0, dtype=np.int64) for _ in range(b - a)
+                elif self.stream is not None:
+                    res = self._window_streaming(
+                        los[a:b], his[a:b], runner, return_certs=return_certs,
                     )
-                    certs.extend(self._root_cert() for _ in range(b - a))
-            self.stats.microbatches += 1
-        self.stats.queries += los.shape[0]
-        if return_certs:
-            self.stats.degraded_queries += sum(
-                1 for c in certs if not c.complete
-            )
-            return out, certs
-        return out
+                    if return_certs:
+                        res, cs = res
+                        certs.extend(cs)
+                    out.extend(res)
+                elif self.sdev is not None:
+                    with self.table_lock.read():
+                        res = window_query_batch_sharded(
+                            self.sdev, los[a:b], his[a:b], runner=runner,
+                            return_certs=return_certs,
+                        )
+                    if return_certs:
+                        res, cs = res
+                        certs.extend(cs)
+                    out.extend(res)
+                else:
+                    try:
+                        with self.table_lock.read():
+                            out.extend(runner(0, lambda a=a, b=b: (
+                                window_query_batch_torch(
+                                    self.dev, los[a:b], his[a:b],
+                                )
+                            )))
+                        certs.extend(
+                            CompletenessCertificate.intact()
+                            for _ in range(b - a)
+                        )
+                    except ShardUnavailable:
+                        if not return_certs:
+                            raise
+                        out.extend(
+                            np.zeros(0, dtype=np.int64) for _ in range(b - a)
+                        )
+                        certs.extend(self._root_cert() for _ in range(b - a))
+                self.stats.microbatches += 1
+            self.stats.queries += los.shape[0]
+            if return_certs:
+                self.stats.degraded_queries += sum(
+                    1 for c in certs if not c.complete
+                )
+                return out, certs
+            return out
 
     def knn(self, qs: np.ndarray, k: int, *,
             return_certs: bool = False, deadline=None,
@@ -699,77 +701,78 @@ class DeviceQueryServer:
         protocol and the adaptive host path keep their own exactness
         machinery and ignore it.
         """
-        qs = self._validate_batch(qs, "qs")
-        if not isinstance(k, (int, np.integer)) or int(k) < 1:
-            raise ValueError(f"k must be a positive integer, got {k!r}")
-        k = int(k)
-        if deadline is None:
-            deadline = self._deadline()
-        out: list[np.ndarray] = []
-        certs: list = []
-        for a, b in self._chunks(qs.shape[0]):
-            runner = self._shard_runner(deadline)
-            if self.adaptive:
-                if self.stream is not None:
-                    k_eff = self._k_eff(k)
-                    res = self._knn_adaptive(qs[a:b], k_eff, deadline)
-                    res = self._merge_overlay_knn(res, qs[a:b], k)
-                else:
-                    res = self._knn_adaptive(qs[a:b], k, deadline)
-                out.extend(res)
-                certs.extend(
-                    CompletenessCertificate.intact() for _ in range(b - a)
-                )
-            elif self.stream is not None:
-                res = self._knn_streaming(
-                    qs[a:b], k, runner, return_certs=return_certs,
-                )
-                if return_certs:
-                    res, cs = res
-                    certs.extend(cs)
-                out.extend(res)
-            elif self.sdev is not None:
-                with self.table_lock.read():
-                    res = knn_query_batch_sharded(
-                        self.sdev, qs[a:b], k, runner=runner,
-                        return_certs=return_certs,
-                    )
-                if return_certs:
-                    res, cs = res
-                    certs.extend(cs)
-                out.extend(res)
-            else:
-                try:
-                    with self.table_lock.read():
-                        res, exact = runner(0, lambda a=a, b=b: (
-                            knn_query_batch_torch(
-                                self.dev, qs[a:b], k,
-                                max_rounds=max_rounds, return_exact=True,
-                            )
-                        ))
+        with tracing.span("serve.knn"):
+            qs = self._validate_batch(qs, "qs")
+            if not isinstance(k, (int, np.integer)) or int(k) < 1:
+                raise ValueError(f"k must be a positive integer, got {k!r}")
+            k = int(k)
+            if deadline is None:
+                deadline = self._deadline()
+            out: list[np.ndarray] = []
+            certs: list = []
+            for a, b in self._chunks(qs.shape[0]):
+                runner = self._shard_runner(deadline)
+                if self.adaptive:
+                    if self.stream is not None:
+                        k_eff = self._k_eff(k)
+                        res = self._knn_adaptive(qs[a:b], k_eff, deadline)
+                        res = self._merge_overlay_knn(res, qs[a:b], k)
+                    else:
+                        res = self._knn_adaptive(qs[a:b], k, deadline)
                     out.extend(res)
                     certs.extend(
-                        CompletenessCertificate.intact() if bool(e)
-                        else CompletenessCertificate(
-                            complete=True, certified_exact=False
+                        CompletenessCertificate.intact() for _ in range(b - a)
+                    )
+                elif self.stream is not None:
+                    res = self._knn_streaming(
+                        qs[a:b], k, runner, return_certs=return_certs,
+                    )
+                    if return_certs:
+                        res, cs = res
+                        certs.extend(cs)
+                    out.extend(res)
+                elif self.sdev is not None:
+                    with self.table_lock.read():
+                        res = knn_query_batch_sharded(
+                            self.sdev, qs[a:b], k, runner=runner,
+                            return_certs=return_certs,
                         )
-                        for e in exact
-                    )
-                except ShardUnavailable:
-                    if not return_certs:
-                        raise
-                    out.extend(
-                        np.zeros(0, dtype=np.int64) for _ in range(b - a)
-                    )
-                    certs.extend(self._root_cert() for _ in range(b - a))
-            self.stats.microbatches += 1
-        self.stats.queries += qs.shape[0]
-        if return_certs:
-            self.stats.degraded_queries += sum(
-                1 for c in certs if not c.complete
-            )
-            return out, certs
-        return out
+                    if return_certs:
+                        res, cs = res
+                        certs.extend(cs)
+                    out.extend(res)
+                else:
+                    try:
+                        with self.table_lock.read():
+                            res, exact = runner(0, lambda a=a, b=b: (
+                                knn_query_batch_torch(
+                                    self.dev, qs[a:b], k,
+                                    max_rounds=max_rounds, return_exact=True,
+                                )
+                            ))
+                        out.extend(res)
+                        certs.extend(
+                            CompletenessCertificate.intact() if bool(e)
+                            else CompletenessCertificate(
+                                complete=True, certified_exact=False
+                            )
+                            for e in exact
+                        )
+                    except ShardUnavailable:
+                        if not return_certs:
+                            raise
+                        out.extend(
+                            np.zeros(0, dtype=np.int64) for _ in range(b - a)
+                        )
+                        certs.extend(self._root_cert() for _ in range(b - a))
+                self.stats.microbatches += 1
+            self.stats.queries += qs.shape[0]
+            if return_certs:
+                self.stats.degraded_queries += sum(
+                    1 for c in certs if not c.complete
+                )
+                return out, certs
+            return out
 
     def cold_window_mask(self, los: np.ndarray, his: np.ndarray) -> np.ndarray:
         """Which window queries reach unrefined (cold) space: the cheap
