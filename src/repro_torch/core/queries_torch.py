@@ -20,9 +20,13 @@ Fused engine (a few scalar syncs per batch):
     ``searchsorted``; pairs stream in power-of-two buckets of at most
     ``PAIR_CHUNK`` through ``pair_window_ids`` (one launch per chunk),
     which re-checks each leaf box in exact f32 and tests containment.
-    The qualifying ids are compacted on the device too.  Host syncs: one
-    for the pair count, one per chunk for its id total, and the final
-    transfer of the packed ids.
+    The qualifying ids are compacted on the device too, and written as
+    int64 at their offsets into one device buffer, the per-window counts
+    behind them.  Host syncs: one for the pair count, one per chunk for
+    its id total, and the final transfer of the packed ids: one DMA of
+    that int64 buffer into page-locked host memory from PyTorch's
+    caching host allocator, which hands the block out again once no
+    answer refers to it.  Each window's answer is a view of that block.
   * **k-NN batch.**  Each query ranks the leaves by box mindist
     (``leaf_mindist_tiled``; compressed bounds where exported, which only
     lowers a mindist), scans its C closest through ``pair_dist2``, merges
@@ -57,8 +61,12 @@ Tracing (``repro_torch.tracing``), on the fused engine only: spans
 ``engine.window`` / ``engine.knn`` around a batch, ``engine.wait`` around
 each blocking scalar read, ``engine.answers`` around the hand-off of the
 answers to the host; counters of window and k-NN batches, pairs, pair
-chunks, ids, k-NN rounds and requeued queries, and ``export`` /
-``export.layout`` spans around ``DeviceTable.from_table``.
+chunks, ids, k-NN rounds and requeued queries, of window hand-offs that
+landed in page-locked memory (``engine.answers_pinned``) and of those
+whose block the engine had not handed out before
+(``engine.answers_fresh_blocks``: a new ``cudaHostAlloc``, not a
+recycled block), and ``export`` / ``export.layout`` spans around
+``DeviceTable.from_table``.
 
 Parity contract (as the JAX engine's): windows return exactly the NumPy
 engine's id sets for float32-representable inputs; k-NN returns the exact
@@ -70,6 +78,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import threading
 
 import numpy as np
 import torch
@@ -537,7 +546,12 @@ def window_query_batch_torch(dev: DeviceTable, los, his, *,
     device, ``fused=False`` on the host.  On a partial export the ids
     cover only the refined leaves; ``return_cold=True`` also returns the
     (Q, U) mask of the unrefined rows each window reached (those windows
-    must be answered on the host)."""
+    must be answered on the host).
+
+    The fused engine's arrays of one call are views that partition one
+    host block (page-locked from a ``cuda`` export) in window order: a
+    caller that keeps any of them keeps the whole block, and a caller
+    that keeps one answer for long should copy it."""
     if fused is None:
         fused = _fused_default()
     los = np.atleast_2d(np.asarray(los, dtype=np.float32))
@@ -587,10 +601,41 @@ def _window_batch_fused(dev: DeviceTable, los, his, return_cold: bool):
     tracing.count("engine.pair_chunks", -(-p0 // PAIR_CHUNK))
     tracing.count("engine.ids", n_ids)
     with tracing.span("engine.answers"):
-        all_ids = (torch.cat(parts).cpu().numpy().astype(np.int64)
-                   if parts else np.zeros(0, dtype=np.int64))
-        res = np.split(all_ids, np.cumsum(per_query.cpu().numpy())[:-1])
+        res = _answers_to_host(parts, n_ids, per_query)
     return (res, cold) if return_cold else res
+
+
+# Pinned blocks the engine has handed out, by address.  The caching host
+# allocator they come from is process-wide, so this is too; it holds at
+# most one entry per block the allocator ever made.
+_seen_blocks: set[int] = set()
+_seen_lock = threading.Lock()
+
+
+def _answers_to_host(parts: list, n_ids: int, per_query: torch.Tensor) -> list:
+    """The fused window batch's hand-off: the packed int32 parts widen
+    into one int64 device buffer at their offsets, the per-window counts
+    behind them; one copy moves it to the host, into page-locked memory
+    where the buffer is on the card, and the answers are views of it."""
+    buf = torch.empty(n_ids + per_query.shape[0], dtype=torch.int64,
+                      device=per_query.device)
+    o = 0
+    for part in parts:
+        buf[o:o + part.shape[0]].copy_(part)
+        o += part.shape[0]
+    buf[n_ids:].copy_(per_query)
+    pinned = buf.is_cuda
+    host = torch.empty(buf.shape, dtype=torch.int64, pin_memory=pinned)
+    host.copy_(buf)                   # waits for the card
+    fresh = False
+    if pinned:
+        with _seen_lock:
+            fresh = host.data_ptr() not in _seen_blocks
+            _seen_blocks.add(host.data_ptr())
+    tracing.count("engine.answers_pinned", int(pinned))
+    tracing.count("engine.answers_fresh_blocks", int(fresh))
+    flat = host.numpy()
+    return np.split(flat[:n_ids], np.cumsum(flat[n_ids:])[:-1])
 
 
 # --------------------------------------------------------------------------

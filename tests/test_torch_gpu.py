@@ -31,6 +31,7 @@ from repro_torch.core import (
     knn_query_batch_torch,
     window_query_batch_torch,
 )
+from repro_torch import tracing
 from repro_torch.core.datasets import osm_like
 from repro_torch.kernels import knn_topk, launches, ops, partition_assign, ref, window_filter
 from repro_torch.serve import DeviceQueryServer, RetrievalServer
@@ -135,6 +136,40 @@ def test_engine_on_the_card_matches_the_plain_engine(cuda, compressed):
     engine = ("box_hits", "pair_window_ids", "leaf_mindist", "pair_dist2")
     assert all(counts[k] > 0 for k in engine), counts
 
+
+
+@pytest.mark.gpu
+def test_window_answers_land_in_recycled_pinned_memory(cuda):
+    rng = np.random.default_rng(3)
+    pts = (rng.random((100_000, 2)) ** 2).astype(np.float32).astype(np.float64)
+    idx = bulk_load(pts, 60, PageStore(60))
+    on_card = DeviceTable.from_index(idx)
+    c = rng.random((200, 2)).astype(np.float32)
+    los, his = c - np.float32(0.03), c + np.float32(0.03)
+    got = window_query_batch_torch(on_card, los, his)
+    assert all(a.dtype == np.int64 and a.base is got[0].base for a in got)
+    assert all(torch.from_numpy(a).is_pinned() for a in got if len(a))
+    for a, b in zip(got, window_query_batch_torch(on_card, los, his, fused=False)):
+        np.testing.assert_array_equal(np.sort(a), np.sort(b))
+    # windows over the whole square: 6.4 M ids a batch, a size class of
+    # page-locked block (64 MB) that nothing else in this file asks for
+    wlo, whi = np.full((64, 2), -0.5, np.float32), np.full((64, 2), 1.5, np.float32)
+
+    def fresh():
+        return tracing.counters().get("engine.answers_fresh_blocks", 0)
+
+    first = window_query_batch_torch(on_card, wlo, whi)
+    assert sum(len(a) for a in first) == 64 * len(pts)
+    assert torch.from_numpy(first[0]).is_pinned()
+    del first
+    before, pinned = fresh(), tracing.counters()["engine.answers_pinned"]
+    for _ in range(10):     # each batch's answers dropped at once
+        window_query_batch_torch(on_card, wlo, whi)
+    assert fresh() == before
+    assert tracing.counters()["engine.answers_pinned"] == pinned + 10
+    held = [window_query_batch_torch(on_card, wlo, whi) for _ in range(2)]
+    assert fresh() == before + 1
+    assert held[0][0].base is not held[1][0].base
 
 
 def _hotspots(rng, steps, per_step):

@@ -33,6 +33,7 @@ from repro_torch.core import (
     knn_query_batch_torch,
     window_query_batch_torch,
 )
+from repro_torch import tracing
 from repro_torch.core import queries_torch as QT
 
 from engines import build_fmbi, build_grafted_ambi, f32_points
@@ -220,6 +221,46 @@ def test_multi_chunk_windows_match_one_chunk(monkeypatch):
     for i in range(40):
         np.testing.assert_array_equal(np.sort(chunked[i]),
                                       window_oracle(pts, los[i], his[i]))
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_window_answers_are_views_of_one_int64_buffer(chunk, monkeypatch):
+    pts = f32_points(6000, 2, 13, "skew")
+    tdev = DeviceTable.from_index(_port_fmbi(pts), device="cpu")
+    rng = np.random.default_rng(9)
+    c = rng.random((40, 2)).astype(np.float32)
+    w = rng.choice([0.0, 0.02, 0.3], size=(40, 1)).astype(np.float32)
+    los, his = c - w, c + w
+    los[::7], his[::7] = 2.0, 3.0     # empty windows between the others
+    packed, pack = [], QT._fused_id_pack
+
+    def keeping(*a):
+        packed.append(pack(*a))
+        return packed[-1]
+
+    if chunk:
+        monkeypatch.setattr(QT, "PAIR_CHUNK", chunk)
+    monkeypatch.setattr(QT, "_fused_id_pack", keeping)
+    before = tracing.counters()
+    res = window_query_batch_torch(tdev, los, his)
+    after = tracing.counters()
+    assert len(packed) > (4 if chunk else 0)
+    # one int64 buffer, partitioned in window order: each answer starts
+    # where the one before it ends, and together they are the packed ids
+    assert all(r.dtype == np.int64 and r.base is res[0].base for r in res)
+    at = res[0].base.__array_interface__["data"][0]
+    before_ids = np.cumsum([0] + [len(r) for r in res[:-1]])
+    assert all(r.__array_interface__["data"][0] == at + 8 * int(b)
+               for r, b in zip(res, before_ids) if len(r))
+    np.testing.assert_array_equal(np.concatenate(res), torch.cat(packed).numpy())
+    assert all(len(res[i]) == 0 for i in range(0, 40, 7))
+    unfused = window_query_batch_torch(tdev, los, his, fused=False)
+    for i in range(40):
+        np.testing.assert_array_equal(np.sort(res[i]), np.sort(unfused[i]))
+        np.testing.assert_array_equal(np.sort(res[i]), window_oracle(pts, los[i], his[i]))
+    # a CPU export hands off in pageable memory
+    for name in ("engine.answers_pinned", "engine.answers_fresh_blocks"):
+        assert after[name] == before.get(name, 0)
 
 
 def test_empty_window_results():

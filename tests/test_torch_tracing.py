@@ -159,6 +159,19 @@ def test_knn_rounds_and_requeued_queries(served, monkeypatch, max_rounds):
     assert c["engine.knn_batches"] == 1
 
 
+def test_answers_hand_off_counters(served):
+    _, _, srv, rows = served
+    srv.window(*_windows(rows))
+    c = tracing.counters()
+    # on a CPU export no hand-off lands in page-locked memory
+    assert c["engine.answers_pinned"] == 0 and c["engine.answers_fresh_blocks"] == 0
+    tracing.count("engine.answers_pinned", 3)
+    tracing.count("engine.answers_fresh_blocks", 1)
+    tracing.zero_counters("engine.")
+    c = tracing.counters()
+    assert c["engine.answers_pinned"] == 0 and c["engine.answers_fresh_blocks"] == 0
+
+
 def test_answers_are_the_same_with_tracing_on(served):
     _, _, srv, rows = served
     los, his = _windows(rows)
