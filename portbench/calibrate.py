@@ -2,8 +2,8 @@
 
     python portbench/calibrate.py --config <name> --seeds <n> [<n> ...] [--seconds <s>]
 
-For each seed, in one process: the configuration's points are made,
-bulk loaded and exported once, and each of its cells serves a short
+For each seed, in one process: the configuration's points are made and
+built once (as its build module does), and each of its cells serves a short
 window at its own load, as a run does; the sampled answers are then
 held against the reference (the program's readings), and the reference
 in bfloat16 answers the same queries in the program's place (the
@@ -45,8 +45,9 @@ def main(argv=None) -> int:
         dep = harness.deploy(cells[0].config, seed, "cuda", cells[0].config["microbatch"])
         points = torch.from_numpy(dep.points).to("cuda")
         for cell in cells:
-            tr = traffic.Traffic(cell.traffic, dep.points, seed)
-            harness.warm_up(dep.server, tr, "cuda")
+            tr = traffic.Traffic(cell.traffic, dep.points, seed, cell.config)
+            harness.warm_up_fixed(dep.server, tr, "cuda", dep.warmup_requests)
+            harness.warm_up(dep.server, tr, "cuda", dep.warmup_requests)
             res = harness.Reservoir(cell.traffic["check_sample"], seed)
             win = harness.measure(dep.server, tr, args.seconds, res, sys.stderr)
             program = compare.readings(tr.kind, points, res.items, tr.k)

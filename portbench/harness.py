@@ -4,7 +4,9 @@ comparison with the reference, and the result line.
 The cell's name leads to everything it needs through ``BENCHMARK.json``:
 its configuration's file, ``traffic/<traffic>.json`` (read by
 ``traffic.py``), ``cells/<workload>.json`` (the limits of the comparison)
-and one reader per metric under ``metrics/``.
+and one reader per metric under ``metrics/``.  The configuration names its
+build (``builds/<build>.py``, FMBI by default) and the traffic file where
+its queries fall (``centers/<center>.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from . import bytemodel, compare, isolation, trace, traffic
+from . import builds, bytemodel, compare, isolation, plugins, trace, traffic
 
 PKG = pathlib.Path(__file__).resolve().parent
 ROOT = PKG.parent
@@ -29,6 +31,8 @@ TRACE_LEAD = 2          # profiled but outside the traced range
 TRACE_REQUESTS = 48     # the traced range, after the window
 PAIR_SAMPLE = 64        # window requests whose pairs the work summary counts
 KERNEL_SPANS = ("box_hits_tiled", "pair_window_ids", "leaf_mindist_tiled", "pair_dist2")
+# what a build that refines while it serves did in the warm-up's first requests
+REFINEMENT_STATS = ("cold_queries", "hot_queries", "grafts", "delta_refreshes", "compactions")
 
 
 @dataclasses.dataclass
@@ -41,16 +45,28 @@ class Cell:
 
 
 def load_cell(name: str, bench_path: pathlib.Path | None = None) -> Cell:
-    bench = json.loads((bench_path or ROOT / "BENCHMARK.json").read_text())
+    """The cell ``name`` of ``bench_path`` (this tree's ``BENCHMARK.json``
+    unless given).  Its configuration, ``cells/`` and ``traffic/`` files
+    come from the tree that holds ``bench_path``, each one that tree lacks
+    from this one."""
+    bench_path = bench_path or ROOT / "BENCHMARK.json"
+    bench = json.loads(bench_path.read_text())
+
+    def find(rel: str) -> pathlib.Path:
+        path = bench_path.parent / rel
+        return path if path.is_file() else ROOT / rel
+
     (work,) = [w for w in bench["workloads"] if w["name"] == name]
     (cfg,) = [c for c in bench["configs"] if c["name"] == work["config"]]
-    config = json.loads((ROOT / cfg["file"]).read_text())
-    cell_file = json.loads((PKG / "cells" / f"{name}.json").read_text())
+    config_path = find(cfg["file"])
+    config = json.loads(config_path.read_text())
+    plugins.find("builds", config.get("build", builds.DEFAULT), config_path)
+    cell_file = json.loads(find(f"portbench/cells/{name}.json").read_text())
     applies = lambda m: name in m.get("workloads", [name])
     return Cell(
         workload=work,
         config=config,
-        traffic=traffic.load(work["traffic"]),
+        traffic=traffic.load(work["traffic"], find(f"portbench/traffic/{work['traffic']}.json")),
         limits=cell_file["limits"],
         metrics={kind: [m for m in bench[kind] if applies(m)]
                  for kind in ("end_to_end", "per_layer")},
@@ -119,9 +135,18 @@ class Run:
     kernel_bytes: dict | None = None
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def card_bytes(device) -> int | None:
+    """``torch.cuda.memory_allocated()`` once the card is idle; None off
+    the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
 
 
 def _install_spans(spans: trace.Spans, rt) -> None:
@@ -144,6 +169,11 @@ def _index_sizes(srv) -> dict | None:
                 "counts": dev.leaf_counts.long(), "n_nodes": int(srv.table.n_nodes)}
     except AttributeError:
         return None
+
+
+def _on_card(srv) -> dict:
+    """The leaves and cold (unrefined) rows of the server's export."""
+    return {"leaves": srv.dev.n_leaves, "cold_rows": srv.dev.n_cold}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -172,58 +202,54 @@ def _kernel_bytes(tr: traffic.Traffic, sizes: dict, traced: list, points: np.nda
     return {k: v for k, v in out.items() if v}
 
 
-@dataclasses.dataclass
-class Deployment:
+@dataclasses.dataclass(kw_only=True)
+class Deployment(builds.Built):
     points: np.ndarray
-    index: object
-    server: object
-    setup: dict
-    io_pages: int
-    device_bytes: int | None
-    buffer_pages: int
+    io_pages: int          # the store's page I/O when the build is done
+    warmup_requests: int   # the build's WARMUP_REQUESTS
+
+
+def _io_pages(store) -> int:
+    return store.stats.reads + store.stats.writes
 
 
 def deploy(cfg: dict, seed: int, device, microbatch: int, n_points: int | None = None) -> Deployment:
-    """Make the points, bulk load them with FMBI and export the index to
-    ``device`` behind a ``DeviceQueryServer``; each step timed."""
-    import repro_torch as rt
-
-    setup = {}
+    """Make the points and build the index that the configuration names
+    (``builds/<build>.py``) behind a ``DeviceQueryServer`` on ``device``;
+    each step timed."""
+    build = plugins.find("builds", cfg.get("build", builds.DEFAULT),
+                         f"configuration {cfg.get('name')}")
     t = time.perf_counter()
     pts = make_points(cfg, seed, n_points)
-    setup["data_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    bp = buffer_pages(cfg, len(pts))
-    idx = rt.bulk_load(pts, bp, rt.PageStore(bp))
-    setup["bulk_load_s"] = time.perf_counter() - t
-    if idx.leaf_cap != cfg["leaf_capacity"]:
-        raise RuntimeError(f"leaf capacity {idx.leaf_cap}, configured {cfg['leaf_capacity']}")
-    on_card = torch.device(device).type == "cuda"
-    _sync(device)
-    before = torch.cuda.memory_allocated() if on_card else None
-    t = time.perf_counter()
-    srv = rt.DeviceQueryServer.from_index(idx, microbatch=microbatch,
-                                          compressed=cfg["export"] != "float32",
-                                          device=device)
-    _sync(device)
-    setup["export_s"] = time.perf_counter() - t
-    return Deployment(
-        points=pts, index=idx, server=srv, setup=setup,
-        io_pages=idx.store.stats.reads + idx.store.stats.writes,
-        device_bytes=torch.cuda.memory_allocated() - before if on_card else None,
-        buffer_pages=bp)
+    data_s = time.perf_counter() - t
+    b = build.deploy(cfg, pts, device, microbatch)
+    b.setup = {"data_s": data_s, **b.setup}
+    return Deployment(**vars(b), points=pts, io_pages=_io_pages(b.store),
+                      warmup_requests=build.WARMUP_REQUESTS)
 
 
-def warm_up(srv, tr: traffic.Traffic, device) -> float:
-    """Serve this cell's batch shape from a stream of its own for
-    ``WARMUP_SECONDS`` (the first runs of a request shape are slower on the
-    card than later ones); seconds."""
+def warm_up_fixed(srv, tr: traffic.Traffic, device, count: int) -> list[float]:
+    """Serve the warm-up stream's first ``count`` requests, for a build
+    that refines while it serves; each one's seconds."""
+    seconds = []
+    for i in range(count):
+        t = time.perf_counter()
+        tr.serve(srv, tr.request(i, traffic.WARMUP_STREAM))
+        sync(device)
+        seconds.append(time.perf_counter() - t)
+    return seconds
+
+
+def warm_up(srv, tr: traffic.Traffic, device, start: int = 0) -> float:
+    """Serve this cell's batch shape from a stream of its own, from its
+    request ``start`` on, for ``WARMUP_SECONDS`` (the first runs of a
+    request shape are slower on the card than later ones); seconds."""
     t = time.perf_counter()
-    i = 0
+    i = start
     while time.perf_counter() - t < WARMUP_SECONDS:
         tr.serve(srv, tr.request(i, traffic.WARMUP_STREAM))
         i += 1
-    _sync(device)
+    sync(device)
     return time.perf_counter() - t
 
 
@@ -277,7 +303,7 @@ def traced_slice(srv, tr: traffic.Traffic, device):
             for j in range(TRACE_LEAD, TRACE_LEAD + TRACE_REQUESTS):
                 req = tr.request(j, traffic.TRACE_STREAM)
                 served.append((req, tr.serve(srv, req)))
-            _sync(device)
+            sync(device)
     return prof, served
 
 
@@ -309,15 +335,26 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     dep = deploy(cfg, seed, device, spec["queries_per_request"], sizes.get("n_points"))
     srv, pts = dep.server, dep.points
     setup = {"imports_s": t_imported - t_start, "cuda_init_s": t_cuda - t_imported, **dep.setup}
-    tr = traffic.Traffic(spec, pts, seed)
+    tr = traffic.Traffic(spec, pts, seed, cfg)
     spans = trace.Spans() if traced else None
     if traced:
         _install_spans(spans, rt)
-    setup["warmup_s"] = warm_up(srv, tr, device)
+    refines = dep.warmup_requests > 0
+    if refines:
+        stats0 = dataclasses.asdict(srv.stats)
+        first = warm_up_fixed(srv, tr, device, dep.warmup_requests)
+        setup["first_request_s"], setup["warmup_requests_s"] = first[0], sum(first[1:])
+        stats = dataclasses.asdict(srv.stats)
+        warmed = {"requests": len(first), "request_s": first,
+                  **{k: stats[k] - stats0[k] for k in REFINEMENT_STATS}}
+    setup["warmup_s"] = warm_up(srv, tr, device, dep.warmup_requests)
     t = time.perf_counter()
     gc.collect()
     gc.freeze()
     setup["gc_s"] = time.perf_counter() - t
+    if dep.device_bytes is None and dep.bytes_before is not None:
+        dep.device_bytes = card_bytes(device) - dep.bytes_before
+    card_at_start = _on_card(srv) if refines else None
     reservoir = Reservoir(sample or spec["check_sample"], seed)
     launches.reset()
     stats0 = dataclasses.asdict(srv.stats)
@@ -325,6 +362,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
     spans0 = {name: spans.seconds(name) for name in ("server", "engine")} if traced else None
     win = measure(srv, tr, seconds, reservoir, stderr)
     setup_s = win.t0 - t_start
+    if refines:
+        card_at_end, io_at_end = _on_card(srv), _io_pages(dep.store)
     requests, failed = len(win.latencies), win.failed
     window_spans = None
     if traced:
@@ -359,6 +398,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, *,
         "setup": {**setup, "other_s": setup_s - sum(setup.values())},
         "points": len(pts), "buffer_pages": dep.buffer_pages, "io_pages": dep.io_pages,
     }
+    if refines:
+        work.update(warm_up=warmed, card_at_window_start=card_at_start,
+                    card_at_window_end=card_at_end, io_pages_at_window_end=io_at_end)
     if sizes_idx is not None:
         work["leaves"] = int(sizes_idx["leaf_lo"].shape[0])
         work["nodes"] = sizes_idx["n_nodes"]

@@ -1,0 +1,3 @@
+"""``serve_self_ms`` in the window cells whose throughput is per layer, where it
+names another end-to-end metric under ``moves`` than in the k-NN cell."""
+from .serve_self_ms import read  # noqa: F401

@@ -16,7 +16,9 @@ of uniform data.  Kinds:
 * ``knn``: a point drawn uniformly from that cube around each centre,
   answered with ``k`` neighbours.
 
-Centres are data rows (``"center": "data_rows"``) drawn uniformly.
+Where the centres fall is the file's ``"center"`` kind, one module of
+``centers/`` each: ``data_rows`` (data rows drawn uniformly) or
+``focused`` (data rows drawn uniformly inside a focus box).
 """
 from __future__ import annotations
 
@@ -25,15 +27,22 @@ import pathlib
 
 import numpy as np
 
+from . import plugins
+
 DIR = pathlib.Path(__file__).resolve().parent / "traffic"
 
 WINDOW_STREAM, WARMUP_STREAM, TRACE_STREAM = 0, 1, 2
 
 
-def load(name: str) -> dict:
-    spec = json.loads((DIR / f"{name}.json").read_text())
-    if spec["kind"] not in ("window", "knn") or spec["center"] != "data_rows":
-        raise ValueError(f"traffic {name}: no generator for {spec}")
+def load(name: str, path: pathlib.Path | None = None) -> dict:
+    """The mix ``name`` from ``path`` (``traffic/<name>.json`` here unless
+    given); a ``ValueError`` naming the file for a kind or centre kind
+    that has no generator."""
+    path = path or DIR / f"{name}.json"
+    spec = json.loads(path.read_text())
+    if spec["kind"] not in ("window", "knn"):
+        raise ValueError(f"{path}: no generator for the kind {spec['kind']!r}")
+    plugins.find("centers", spec["center"], path)
     return spec
 
 
@@ -42,7 +51,9 @@ def _f32(a: np.ndarray) -> np.ndarray:
 
 
 class Traffic:
-    def __init__(self, spec: dict, points: np.ndarray, seed: int):
+    def __init__(self, spec: dict, points: np.ndarray, seed: int, config: dict | None = None):
+        """``config``, the deployment's configuration, is for centre kinds
+        that read the map."""
         self.spec = spec
         self.kind = spec["kind"]
         self.q = int(spec["queries_per_request"])
@@ -51,11 +62,13 @@ class Traffic:
         self.seed = int(seed) % 2**64
         n, d = points.shape
         self.half_width = 0.5 * (spec["area_per_n"] / n) ** (1.0 / d)
+        self.centers = plugins.find("centers", spec["center"], "the traffic file").make(
+            spec, points, config)
 
     def request(self, i: int, stream: int = WINDOW_STREAM):
         """``(los, his)`` for a window request, the query points for k-NN."""
         rng = np.random.default_rng([self.seed, 1 + stream, i])
-        c = self.points[rng.integers(0, len(self.points), self.q)]
+        c = self.centers(rng, self.q)
         hw = self.half_width
         if self.kind == "window":
             return _f32(c - hw), _f32(c + hw)
